@@ -1,0 +1,324 @@
+"""Smoke run of the PyTorch/CUDA port (raytrace_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                   # the whole check, about a minute
+    python3 chip_smoke.py --profile FILE    # also a torch.profiler table of
+                                            # one frame, written to FILE
+
+Phases, one JSON result line each:
+  1. device     the card's name and power limit; raises without CUDA
+  2. build      nvcc builds kernels K1 and K2 from raytrace_tpu_torch/csrc
+  3. k1         K1 (closest hit) against its plain PyTorch version on
+                262,144 random rays: the Cornell triangles and a
+                4,096-triangle soup; hit flips are bounded
+  4. k2         K2 (row-span gather) against its plain version on the
+                gather inputs of the full-size frame
+  5. reference  a 32×32 frame on the card (kernels) against the same frame
+                on the CPU (plain versions)
+  6. main       render_photon on the 512×512 glass Cornell box with 262,144
+                photon paths (bench.py's headline settings): a warm-up,
+                then the median of 5 frames, with both kernels' launch
+                counts over those frames
+Then the kernel table as one JSON line, the card line from nvidia-smi, and
+last {"ok": true, "device": {...}}. Any failed check raises, so the script
+exits non-zero and prints no final line.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+import raytrace_tpu_torch
+from raytrace_tpu_torch.core import prng
+from raytrace_tpu_torch.core.config import RenderConfig
+from raytrace_tpu_torch.ops import cuda_lib
+from raytrace_tpu_torch.ops import rowspan_gather as rg
+from raytrace_tpu_torch.ops import tri_intersect as ti
+from raytrace_tpu_torch.renderers import common, photon
+from raytrace_tpu_torch.scene import presets
+from raytrace_tpu_torch.scene.camera import generate_rays, pixel_samples
+
+SIZE = 512
+# bench.py:78-85, the frame users render through render_photon
+BENCH = dict(width=SIZE, height=SIZE, spp=1, scene_epsilon=1e-3,
+             photon_paths=1 << 18, photon_passes=1, max_photon_bounces=8,
+             footprint_radius_scale=8.0)
+N_RAYS = 1 << 18
+BIG = 1e30
+# K1 runs with --fmad=false, so it rounds like the plain version; allow a
+# 1e-4 share of rays to flip between hit/miss or triangle anyway, and on the
+# rays that agree t within 1e-5 of the largest t, β and γ within 1e-5
+K1_FLIP_FRAC = 1e-4
+K1_RTOL = 1e-5
+# K2 forms each term |n_s·wi|·α exactly as the plain version does and only
+# sums in another order. A sum of M nonzero terms rounds at most M - 1
+# additions, each by 2^-24 of at most the total, so per query the two sides
+# differ by at most 2·M·2^-24 of its flux; counts M are exact.
+K2_ULP = 2.0 ** -24
+# card (kernels) vs CPU (plain versions) at 32×32: transcendentals differ
+# by ulps between the two, which can move a few photon paths
+REF_REL_L1, REF_OFF_FRAC = 1e-3, 0.02
+
+
+def emit(phase: str, **kv) -> None:
+    print(json.dumps({"phase": phase, **kv}), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int) -> float:
+    """Mean device time of fn over iters launches, after one warm-up."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    secs = {}
+    for name in ("tri_intersect", "rowspan_gather"):
+        t1 = time.perf_counter()
+        cuda_lib.build(name)
+        secs[name] = time.perf_counter() - t1
+    emit("build", seconds=secs, total_s=time.perf_counter() - t0)
+
+
+def _k1_case(label, o, d, v0, v1, v2, iters):
+    n = o.shape[0]
+    tmin = torch.full((n,), 1e-3, device=o.device)
+    tmax = torch.full((n,), BIG, device=o.device)
+    args = (o, d, tmin, tmax, v0, v1, v2)
+    got = ti.closest_hit(*args)
+    want = ti.closest_hit_plain(*args)
+    torch.cuda.synchronize()
+    hit_k, hit_p = got[0] < BIG, want[0] < BIG
+    agree = (hit_k == hit_p) & (~hit_k | (got[1] == want[1]))
+    flips = int((~agree).sum())
+    both = agree & hit_k
+    err_t = float((got[0][both] - want[0][both]).abs().max())
+    err_bg = max(float((got[k][both] - want[k][both]).abs().max())
+                 for k in (2, 3))
+    if flips > K1_FLIP_FRAC * n:
+        raise AssertionError(f"K1 {label}: {flips} of {n} rays flip")
+    t_scale = float(want[0][both].abs().max())
+    if err_t > K1_RTOL * t_scale or err_bg > K1_RTOL:
+        raise AssertionError(f"K1 {label}: t differs by {err_t} (max t "
+                             f"{t_scale}), beta/gamma by {err_bg}")
+    err = max(err_t, err_bg)
+    ms = cuda_ms(lambda: ti.closest_hit(*args), iters)
+    plain_ms = cuda_ms(lambda: ti.closest_hit_plain(*args), max(1, iters // 10))
+    emit("k1", case=label, rays=n, triangles=v0.shape[0],
+         hits=int(hit_k.sum()), flips=flips, max_abs_err=err, ms=ms,
+         plain_ms=plain_ms)
+    return err, ms, plain_ms
+
+
+def phase_k1(dev, scene):
+    g = torch.Generator(device=dev).manual_seed(1)
+    rnd = lambda *s: torch.rand(*s, device=dev, generator=g)
+    # rays from inside the box, every direction
+    o = rnd(N_RAYS, 3) * torch.tensor([2.0, 2.0, 2.0], device=dev) \
+        - torch.tensor([1.0, 0.0, 0.0], device=dev)
+    d = torch.nn.functional.normalize(torch.randn(N_RAYS, 3, device=dev,
+                                                  generator=g), dim=1)
+    tris = scene.tris
+    res = _k1_case("cornell", o.contiguous(), d.contiguous(), tris.v0,
+                   tris.v1, tris.v2, iters=50)
+    # 4,096-triangle soup in [-1, 1]^3
+    t = 4096
+    v0 = rnd(t, 3) * 2 - 1
+    v1 = v0 + 0.15 * torch.randn(t, 3, device=dev, generator=g)
+    v2 = v0 + 0.15 * torch.randn(t, 3, device=dev, generator=g)
+    o2 = rnd(N_RAYS, 3) * 3 - 1.5
+    _k1_case("soup4096", o2.contiguous(), d, v0.contiguous(),
+             v1.contiguous(), v2.contiguous(), iters=10)
+    return res  # the main path's shape: camera-size batch, 10 triangles
+
+
+def phase_k2(dev, scene, cam, cfg):
+    """K2 on the gather inputs of the full-size frame (first wave)."""
+    keys = prng.split(prng.PRNGKey(0, dev), 3)
+    xy, lens = pixel_samples(keys[0], cfg.width, cfg.height, cfg.spp)
+    rays = generate_rays(cam, xy, lens, cfg.spp)
+    rec = common.camera_pass(scene, rays.o, rays.d, cfg, rays=rays)
+    r2 = photon.initial_radius2(rec, cfg)
+    photons = photon.trace_photons(scene, cfg, keys[2], 0)
+    state = photon.ProgressiveState(
+        radius2=r2, photon_count=torch.zeros_like(r2),
+        flux=torch.zeros_like(rec.p), emitted=torch.zeros_like(r2))
+    rounds, budget = photon.gather_capacity(cfg, photons.p.shape[0])
+    jobs = rg.rowspan_jobs(
+        photons.p, photons.wi, photons.alpha, photons.valid,
+        photon.gather_cell_size(rec, state), rec.p,
+        torch.where(rec.hit, r2, 0.0), rec.ns, r_max=cfg.gather_r_max,
+        rounds=rounds, job_budget=budget)
+    args = [jobs[k] for k in ("pid", "tile_begin", "tile_end", "n_chunks",
+                              "qpT", "qr2", "qnsT", "pdata")]
+    got = rg.rowspan_S(*args)
+    want = rg.rowspan_S_plain(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got[3], want[3]):
+        raise AssertionError("K2: photon counts M differ from the plain "
+                             "version")
+    diff = (got[:3] - want[:3]).abs()
+    bound = 2.0 * K2_ULP * want[3] * want[:3].abs()
+    worst = int(torch.argmax((diff - bound).amax(0)))
+    if bool((diff > bound).any()):
+        raise AssertionError(
+            f"K2: flux of query {worst} differs by {diff[:, worst].tolist()} "
+            f"(want {want[:3, worst].tolist()}, M {float(want[3, worst])})")
+    err = float(diff.max())
+    scale = float(want[:3].abs().max())
+    # largest error per query in units of its own bound's M·2^-24·flux
+    ulps = float((diff / (K2_ULP * want[3] * want[:3].abs()).clamp(
+        min=1e-30)).max())
+    ms = cuda_ms(lambda: rg.rowspan_S(*args), 20)
+    plain_ms = cuda_ms(lambda: rg.rowspan_S_plain(*args), 2)
+    emit("k2", queries=int(rec.p.shape[0]), tiles=len(jobs["tile_begin"]),
+         chunks=jobs["n_chunks"], jobs=int(jobs["n_jobs"]),
+         overflow=int(jobs["overflow"]), photons=int(photons.valid.sum()),
+         pair_tests=int(jobs["n_jobs"]) * rg.TILE_Q * jobs["pdata"].shape[2],
+         max_abs_err=err, max_flux=scale, max_err_over_M_ulp=ulps, ms=ms,
+         plain_ms=plain_ms)
+    return err, ms, plain_ms
+
+
+def phase_reference(dev):
+    """32×32 frame: kernels on the card vs plain versions on the CPU."""
+    cfg = RenderConfig(**dict(BENCH, width=32, height=32,
+                              photon_paths=1 << 12))
+    imgs = []
+    for device in (dev, "cpu"):
+        scene, cam = presets.cornell_box(device, 32, ball="glass")
+        imgs.append(photon.render_photon(scene, cam, cfg,
+                                         prng.PRNGKey(0, device)).cpu())
+    gpu, cpu = imgs
+    rel_l1 = float((gpu - cpu).abs().sum() / cpu.abs().sum())
+    off = float(((gpu - cpu).abs().amax(-1)
+                 > 1e-3 * cpu.amax(-1).clamp(min=1.0)).float().mean())
+    if not (torch.isfinite(gpu).all() and rel_l1 <= REF_REL_L1
+            and off <= REF_OFF_FRAC):
+        raise AssertionError(f"32x32 frame: rel L1 {rel_l1}, {off} of the "
+                             "pixels off against the CPU reference")
+    emit("reference", size=32, rel_l1=rel_l1, off_pixel_frac=off)
+
+
+def phase_main(dev, scene, cam, cfg, frames=5):
+    img = photon.render_photon(scene, cam, cfg, prng.PRNGKey(0, dev))
+    torch.cuda.synchronize()  # warm-up: kernels loaded, allocator primed
+    ti.closest_hit.launches = 0
+    rg.rowspan_S.launches = 0
+    times = []
+    for i in range(frames):
+        t0 = time.perf_counter()
+        img, aux = photon.render_photon(scene, cam, cfg,
+                                        prng.PRNGKey(i + 1, dev),
+                                        return_aux=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = {"k1": ti.closest_hit.launches, "k2": rg.rowspan_S.launches}
+    valid = int(aux["valid_photons"])
+    if img.shape != (SIZE, SIZE, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError("main path: image not finite or mis-shaped")
+    if not float(img.mean()) > 0.0 or valid <= 0:
+        raise AssertionError("main path: black image or no valid photons")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"main path skipped a kernel: {launches}")
+    frame_s = statistics.median(times)
+    emit("main", size=SIZE, photon_paths=cfg.photon_paths, frames=frames,
+         frame_s=times, frame_s_median=frame_s,
+         rays_per_s=SIZE * SIZE * cfg.spp / frame_s,
+         photons_per_s=cfg.photon_paths / frame_s,
+         valid_photons=valid, gather_overflow=int(aux["gather_overflow"]),
+         pair_overflow=int(aux["pair_overflow"]),
+         mean_radius2=float(aux["mean_radius2"]),
+         image_mean=float(img.mean()), launches=launches)
+    return launches, frame_s
+
+
+def profile_frame(dev, scene, cam, cfg, frame_s: float, path: str) -> None:
+    """One frame under torch.profiler: device time by kernel, written to
+    `path`, and the device's busy share of an unprofiled frame (frame_s;
+    the profiler's own overhead inflates its wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        photon.render_photon(scene, cam, cfg, prng.PRNGKey(9, dev))
+        torch.cuda.synchronize()
+    busy_s = sum(e.device_time_total for e in prof.events()
+                 if e.device_type == DeviceType.CUDA) / 1e6
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=60))
+    emit("profile", device_busy_s=busy_s, frame_s=frame_s,
+         device_idle_frac=1.0 - busy_s / frame_s)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", metavar="FILE",
+                    help="write a per-kernel device-time table of one frame")
+    args = ap.parse_args()
+    # the kernels must be built from this checkout's sources, not from a
+    # copy of the package installed elsewhere
+    pkg_root = Path(raytrace_tpu_torch.__file__).resolve().parent.parent
+    if pkg_root != Path(__file__).resolve().parent:
+        raise RuntimeError(f"raytrace_tpu_torch was imported from {pkg_root}, "
+                           "not from the checkout that holds chip_smoke.py")
+    if not torch.cuda.is_available():
+        raise RuntimeError("chip_smoke.py needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = nvidia_smi()
+    emit("device", nvidia_smi=card, name=torch.cuda.get_device_name(0),
+         torch=torch.__version__, cuda=torch.version.cuda)
+
+    phase_build()
+    cfg = RenderConfig(**BENCH)
+    scene, cam = presets.cornell_box(dev, SIZE, ball="glass")
+    k1 = phase_k1(dev, scene)
+    k2 = phase_k2(dev, scene, cam, cfg)
+    phase_reference(dev)
+    launches, frame_s = phase_main(dev, scene, cam, cfg)
+    if args.profile:
+        profile_frame(dev, scene, cam, cfg, frame_s, args.profile)
+
+    rows = [("tri_closest", "raytrace_tpu_torch/csrc/tri_intersect.cu",
+             "raytrace_tpu/ops/pallas_intersect.py:42", launches["k1"], k1),
+            ("rowspan_gather", "raytrace_tpu_torch/csrc/rowspan_gather.cu",
+             "raytrace_tpu/ops/pallas_gather.py:393", launches["k2"], k2)]
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        for name, src, rep, n, (err, ms, plain_ms) in rows]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,97 @@
+"""Build and load the port's CUDA C++ kernels (csrc/*.cu) with nvcc.
+
+Each source is compiled on first use into a shared library with a plain C
+interface, `-gencode arch=compute_90a,code=sm_90a` (Hopper), and loaded with
+ctypes. Libraries land in `raytrace_tpu_torch/_build/` (git-ignored), named
+by a hash of the source and flags, so an edited source is rebuilt and
+concurrent first uses cannot load a half-written file. Nothing here runs at
+import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+SRC_DIR = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# per-source flags: K1's hit tests and K2's radius tests and weights must
+# round every product and sum like their plain PyTorch versions, so nvcc may
+# not contract a*b+c into an FMA there
+EXTRA_FLAGS = {"tri_intersect": ("--fmad=false",),
+               "rowspan_gather": ("--fmad=false",)}
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin): the CUDA kernels cannot "
+                           "be built")
+    return path
+
+
+def build(name: str) -> Path:
+    """Compile csrc/<name>.cu unless a library of the same source and flags
+    exists → path of the shared library."""
+    src = SRC_DIR / f"{name}.cu"
+    flags = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
+                          "-fPIC", *EXTRA_FLAGS.get(name, ())]
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(flags).encode()).hexdigest()[:12]
+    out = BUILD_DIR / f"lib{name}_{digest}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([nvcc_path(), *flags, "-o", tmp, str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def load(name: str, signatures: dict):
+    """Build (if needed) and load csrc/<name>.cu; `signatures` maps each C
+    entry point to its ctypes argtypes. Every entry point returns the
+    cudaError_t of its launch as an int."""
+    if name not in _loaded:
+        lib = ctypes.CDLL(str(build(name)))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _loaded[name] = lib
+    return _loaded[name]
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream_ptr(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -1,0 +1,317 @@
+"""Progressive photon-mapping renderer, forward frame (port of
+raytrace_tpu/renderers/photon.py: `trace_photons`, the photon walk,
+`gathering_pass`, `final_gathering` and `render_photon`).
+
+  1. camera pass     → renderers/common.camera_pass
+  2. photon tracing  → trace_photons: permuted-Halton emission, threefry
+                       bounce uniforms, per-bounce Russian roulette
+  3. gathering       → gathering_pass: progressive radius/flux update over
+                       the row-span gather (kernel K2) at every map size
+  4. final gather    → final_gathering: L = DL + flux/(π r² N_emitted)
+
+Photon slots are disjoint per path (pm_index = path·max_depth,
+photontracing.cu:82): a [paths·max_depth] photon map with a validity mask.
+Every draw is keyed exactly as in the JAX package, so one key gives the same
+photon map up to float rounding. The walk keeps the JAX package's two forms
+(full batch, or full-width warm steps then only the survivors), which give
+the same per-path results.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+
+import torch
+from torch import Tensor
+
+from raytrace_tpu_torch.core import prng, sampling, spectrum, vec
+from raytrace_tpu_torch.core.config import RenderConfig
+from raytrace_tpu_torch.ops import intersect as isect_ops
+from raytrace_tpu_torch.ops.photon_grid import PhotonMap, gather_radius_dense
+from raytrace_tpu_torch.ops.rowspan_gather import gather_radius_rowspan
+from raytrace_tpu_torch.renderers import common
+from raytrace_tpu_torch.scene.camera import (PerspectiveCamera,
+                                             generate_rays, pixel_samples)
+from raytrace_tpu_torch.scene.scene import Scene
+from raytrace_tpu_torch.shading import light as light_ops
+from raytrace_tpu_torch.shading import material as mat_ops
+from raytrace_tpu_torch.utils import film
+
+BIG = isect_ops.BIG
+_U32 = 0xFFFFFFFF
+
+
+@dataclasses.dataclass(frozen=True)
+class ProgressiveState:
+    """Per-pixel-sample PPM statistics (reference: photonmapping.h:16-19).
+    emitted: photon paths of the waves each pixel took part in (a wave
+    whose gather skipped the pixel's tile is excluded)."""
+    radius2: Tensor  # [N]
+    photon_count: Tensor  # [N] float (α-weighted count)
+    flux: Tensor  # [N, 3]
+    emitted: Tensor  # [N] float
+
+
+def initial_radius2(rec: common.CameraRecords, config: RenderConfig):
+    """Per-pixel starting radius²: the global constant (raytracing.cu:123),
+    or with footprint_radius_scale > 0 the SPPM footprint radius, clamped."""
+    base = torch.full(rec.footprint.shape, config.initial_radius2,
+                      dtype=torch.float32, device=rec.footprint.device)
+    if config.footprint_radius_scale <= 0.0:
+        return base
+    fp = config.footprint_radius_scale * rec.footprint
+    r2 = torch.clamp(fp * fp, config.min_radius2, config.initial_radius2)
+    return torch.where(rec.footprint > 0.0, r2, base)
+
+
+def gather_cell_size(rec: common.CameraRecords, state: ProgressiveState):
+    """Grid cell edge for the gather: the 90th-percentile live radius."""
+    live = torch.where(rec.hit, state.radius2, float("nan"))
+    q90 = torch.nanquantile(live, 0.9)
+    q90 = torch.where(torch.isnan(q90), 1.0, q90)  # no hits at all
+    return torch.sqrt(torch.clamp(q90, min=1e-12))
+
+
+def _bounce_uniforms(k_bounce: Tensor, gids: Tensor, n_int: Tensor):
+    """3 uniforms per lane: threefry(fold_in(fold_in(k, path id), n_int)) —
+    a pure function of (pass key, global path id, n_int)."""
+    return prng.uniform(prng.fold_in(prng.fold_in(k_bounce, gids), n_int),
+                        (3,))
+
+
+def _photon_step(scene: Scene, config: RenderConfig, o, d, alpha, n_int,
+                 act, u) -> dict:
+    """One photon-walk step for a batch of lanes: intersect, classify,
+    deposit, continue (reference semantics: photontracing.cu:113-185)."""
+    width = o.shape[0]
+    max_depth = config.max_photon_depth
+    hit = isect_ops.intersect(
+        scene, o, d,
+        torch.full((width,), config.scene_epsilon, device=o.device),
+        torch.where(act, BIG, 0.0))
+    alive = act & hit.valid  # miss → photon dies (photontracing.cu:193)
+    spec = mat_ops.is_specular(scene.materials, hit.mat)
+    spec_hit = alive & spec
+    diff_hit = alive & ~spec
+
+    # specular bounce (photontracing.cu:113-134)
+    thr, wi_s = mat_ops.specular(scene.materials, hit.mat, hit.ns, hit.dpdu,
+                                 -d)
+    # diffuse: deposit if bounced at least once (photontracing.cu:141-151)
+    deposit = diff_hit & (n_int >= 1)
+    slot = torch.clamp(n_int - 1, 0, max_depth - 1)
+    # diffuse continuation (photontracing.cu:153-184)
+    cont = diff_hit & (n_int < max_depth)
+    fr, wi_d, pdf_b = mat_ops.sample_f(
+        scene.materials, hit.mat, hit.ns, hit.dpdu, -d, u[:, 0], u[:, 1],
+        uv=hit.uv)
+    cont = cont & ~spectrum.is_black(fr) & (pdf_b > 0.0)
+    anew = (alpha * fr
+            * vec.absdot(wi_d, vec.normalize(hit.ns))[:, None]
+            / torch.where(pdf_b == 0.0, 1.0, pdf_b)[:, None])
+    if config.russian_roulette:
+        # the reference's commented-out roulette (photontracing.cu:173-178)
+        y_old = spectrum.luminance(alpha)
+        y_new = spectrum.luminance(anew)
+        p_cont = torch.clamp(
+            y_new / torch.where(y_old == 0.0, 1.0, y_old), max=1.0)
+        cont = cont & (u[:, 2] <= p_cont) & (p_cont > 0.0)
+        anew = anew / torch.where(p_cont == 0.0, 1.0, p_cont)[:, None]
+
+    next_alive = spec_hit | cont
+    s3, c3 = spec_hit[:, None], cont[:, None]
+    o2 = torch.where(next_alive[:, None], hit.p, o)
+    d2 = torch.where(s3, wi_s, torch.where(c3, wi_d, d))
+    alpha2 = torch.where(s3, alpha * thr, torch.where(c3, anew, alpha))
+    # nIntersections: specular bumps 0→1 only (photontracing.cu:126-129);
+    # a diffuse continuation increments (photontracing.cu:182)
+    n_int2 = torch.where(spec_hit & (n_int == 0), 1,
+                         torch.where(cont, n_int + 1, n_int))
+    # a specular path whose throughput went black can never deposit again
+    next_alive = next_alive & ~spectrum.is_black(alpha2)
+    return dict(deposit=deposit, slot=slot, dep_p=hit.p, dep_alpha=alpha,
+                dep_wi=-d, o=o2, d=d2, alpha=alpha2, n_int=n_int2,
+                alive=next_alive)
+
+
+def trace_photons(scene: Scene, config: RenderConfig, key: Tensor,
+                  pass_idx: int) -> PhotonMap:
+    """One photon wave: `photon_paths` light paths, ≤ max_photon_depth
+    diffuse deposits each (reference: photontracing.cu:80-185). With
+    several lights, paths are striped over the light table by path id
+    (uniform pick, Le scaled by the light count)."""
+    common.require_forward(config, "trace_photons")
+    dev = key.device
+    n_paths = config.photon_paths
+    max_depth = config.max_photon_depth
+    keys = prng.split(prng.fold_in(key, pass_idx))
+    k_perm, k_bounce = keys[0], keys[1]
+
+    # emission sampling (photontracing.cu:83-97)
+    perms = sampling.halton_permutations(k_perm)
+    stride = max_depth if config.halton_stride_by_depth else 1
+    gids = torch.arange(n_paths, dtype=torch.int64, device=dev)
+    smp = sampling.halton_sample_4d((gids * stride) & _U32, perms)
+    n_lights = scene.lights.count
+    if n_lights > 1:
+        i_light, light_scale = gids % n_lights, float(n_lights)
+    else:
+        i_light, light_scale = 0, 1.0
+    le, o, d, ns_l, pdf = light_ops.sample_Le(
+        scene.lights, i_light, smp[:, 0], smp[:, 1], smp[:, 2], smp[:, 3])
+    le = le * light_scale
+    alpha = (vec.absdot(ns_l, d)[:, None] * le
+             / torch.where(pdf == 0.0, 1.0, pdf)[:, None])
+    alive = (pdf > 0.0) & ~spectrum.is_black(le)
+
+    ph_p = torch.zeros((n_paths, max_depth, 3), dtype=torch.float32,
+                       device=dev)
+    ph_alpha = torch.zeros_like(ph_p)
+    ph_wi = torch.zeros_like(ph_p)
+    ph_valid = torch.zeros((n_paths, max_depth), dtype=torch.bool,
+                           device=dev)
+    n_int = torch.zeros((n_paths,), dtype=torch.int32, device=dev)
+    all_lanes = torch.arange(n_paths, device=dev)
+    # full-width steps before the walk narrows to its survivors (JAX:
+    # step 0 plus the warm steps of _photon_walk_compact; all of them
+    # when compaction is off)
+    if common.compact_queue_size(config, n_paths):
+        warm = config.compact_warm_steps or (3 if n_paths < (1 << 21) else 1)
+        full_steps = max(1, min(warm, config.max_photon_bounces - 1))
+    else:
+        full_steps = config.max_photon_bounces
+    for it in range(config.max_photon_bounces):
+        if it > 0 and not bool(alive.any()):
+            break
+        lanes = all_lanes if it < full_steps else alive.nonzero()[:, 0]
+        u = _bounce_uniforms(k_bounce, gids[lanes], n_int[lanes])
+        out = _photon_step(scene, config, o[lanes], d[lanes], alpha[lanes],
+                           n_int[lanes], alive[lanes], u)
+        dep = out["deposit"]
+        rows, slot = lanes[dep], out["slot"][dep].long()
+        ph_p[rows, slot] = out["dep_p"][dep]
+        ph_alpha[rows, slot] = out["dep_alpha"][dep]
+        ph_wi[rows, slot] = out["dep_wi"][dep]
+        ph_valid[rows, slot] = True
+        o[lanes], d[lanes], alpha[lanes] = out["o"], out["d"], out["alpha"]
+        n_int[lanes], alive[lanes] = out["n_int"], out["alive"]
+    n_slots = n_paths * max_depth
+    return PhotonMap(p=ph_p.reshape(n_slots, 3),
+                     alpha=ph_alpha.reshape(n_slots, 3),
+                     wi=ph_wi.reshape(n_slots, 3),
+                     valid=ph_valid.reshape(n_slots))
+
+
+def gather_capacity(config: RenderConfig, n_slots: int) -> tuple[int, int]:
+    """(rounds, job_budget) of the row-span gather: config knobs, 0 = auto
+    (rounds scale with the map, clamped to [4, 16]; 2^17 jobs each)."""
+    rounds = config.gather_rounds or max(4, min(16, n_slots >> 18))
+    return rounds, config.gather_job_budget or (1 << 17)
+
+
+def gathering_pass(scene: Scene, rec: common.CameraRecords,
+                   state: ProgressiveState, photons: PhotonMap,
+                   config: RenderConfig):
+    """Progressive radius/flux update (reference: gathering.cu:104-126)
+    over the row-span gather, or the exact all-pairs gather with
+    config.exact_gather (the oracle the JAX package also offers). Gather
+    job-budget overflow is unbiased: a skipped tile returns L = 0, M = 0
+    and its pixels leave this wave out of their emitted-path normalization
+    (raise gather_rounds or gather_job_budget to remove it)."""
+    common.require_forward(config, "gathering_pass")
+    wo = vec.normalize(-rec.direction)
+    kd_over_pi = mat_ops.f(scene.materials, rec.mat, wo, wo, uv=rec.uv)
+    n_slots = photons.p.shape[0]
+    if config.exact_gather:
+        # the exact all-pairs oracle: no job budget, every pixel covered
+        idl, m = gather_radius_dense(photons, rec.p, state.radius2, rec.ns,
+                                     kd_over_pi)
+        overflow = torch.zeros((), dtype=torch.int64, device=m.device)
+        covered = torch.ones_like(rec.hit)
+    else:
+        rounds, job_budget = gather_capacity(config, n_slots)
+        idl, m, overflow, covered = gather_radius_rowspan(
+            photons.p, photons.alpha, photons.wi, photons.valid,
+            gather_cell_size(rec, state), rec.p,
+            torch.where(rec.hit, state.radius2, 0.0), rec.ns, kd_over_pi,
+            r_max=config.gather_r_max, rounds=rounds, job_budget=job_budget)
+    if int(overflow) > 0:
+        warnings.warn(
+            f"gather job budget overflow by {int(overflow)} jobs — affected "
+            "pixel tiles skip this wave (excluded from their normalization);"
+            " raise gather_rounds", RuntimeWarning)
+    info = dict(valid_photons=photons.valid.sum().to(torch.int32),
+                max_cell_occupancy=-1,  # -1: exact path, no per-cell budget
+                gather_overflow=overflow)
+
+    m = torch.where(rec.hit, m, 0)
+    mf = m.to(torch.float32)
+    new_count = state.photon_count + config.ppm_alpha * mf
+    denom = state.photon_count + mf
+    ratio = new_count / torch.where(denom == 0.0, 1.0, denom)
+    upd = m > 0
+    paths_wave = float(n_slots // config.max_photon_depth)
+    state = ProgressiveState(
+        radius2=torch.where(upd, state.radius2 * ratio, state.radius2),
+        photon_count=torch.where(upd, new_count, state.photon_count),
+        flux=torch.where(upd[:, None], (state.flux + idl) * ratio[:, None],
+                         state.flux),
+        emitted=state.emitted + torch.where(covered, paths_wave, 0.0),
+    )
+    return state, info
+
+
+def final_gathering(rec: common.CameraRecords, direct: Tensor,
+                    state: ProgressiveState) -> Tensor:
+    """L = atten·(DL + flux/(π r² N_emitted)) per pixel sample (reference:
+    gathering.cu:129-146), each pixel normalized by the paths of the waves
+    it took part in."""
+    denom = state.radius2 * torch.clamp(state.emitted, min=1.0)
+    have = (state.photon_count != 0.0) & (state.emitted > 0.0)
+    idl = torch.where(have[:, None],
+                      state.flux * sampling.INV_PI / denom[:, None], 0.0)
+    L = rec.atten * (direct + idl)
+    return torch.where(rec.hit[:, None], L, 0.0)
+
+
+def render_photon(scene: Scene, camera: PerspectiveCamera,
+                  config: RenderConfig, key: Tensor, jitter: bool = True,
+                  return_aux: bool = False):
+    """Full progressive photon-mapping render → [H, W, 3] image."""
+    light_samples = common.static_light_samples(scene, config)
+    keys = prng.split(key, 3)
+    k_pix, k_light, k_photon = keys[0], keys[1], keys[2]
+    xy, lens = pixel_samples(k_pix, config.width, config.height, config.spp,
+                             jitter=jitter)
+    rays = generate_rays(camera, xy, lens, config.spp)
+    n = rays.o.shape[0]
+    rec = common.camera_pass(scene, rays.o, rays.d, config, rays=rays)
+    direct = common.direct_lighting(scene, rec, k_light, config,
+                                    light_samples, include_emitted=True)
+    zeros = lambda *s: torch.zeros((n, *s), dtype=torch.float32,
+                                   device=key.device)
+    state = ProgressiveState(radius2=initial_radius2(rec, config),
+                             photon_count=zeros(), flux=zeros(3),
+                             emitted=zeros())
+    valid_photons = 0
+    gather_ovf = 0
+    for p in range(config.photon_passes):
+        photons = trace_photons(scene, config, k_photon, p)
+        state, info = gathering_pass(scene, rec, state, photons, config)
+        valid_photons = valid_photons + info["valid_photons"]
+        gather_ovf = gather_ovf + info["gather_overflow"]
+    L = final_gathering(rec, direct, state)
+    img = film.splat(xy, L, config.width, config.height, config.pixel_filter,
+                     config.filter_radius)
+    if not return_aux:
+        return img
+    aux = dict(
+        valid_photons=valid_photons,
+        max_cell_occupancy=-1,
+        gather_overflow=gather_ovf,
+        # no pair budget without the cluster engines: traversal is exact
+        pair_overflow=0,
+        mean_radius2=torch.mean(torch.where(rec.hit, state.radius2, 0.0)),
+        mean_photon_count=torch.mean(state.photon_count),
+    )
+    return img, aux
