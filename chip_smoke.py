@@ -6,18 +6,30 @@
 
 Phases, one JSON result line each:
   1. device     the card's name and power limit; raises without CUDA
-  2. build      nvcc builds kernels K1 and K2 from raytrace_tpu_torch/csrc
+  2. build      nvcc builds kernels K1, K2 and K3 from raytrace_tpu_torch/csrc,
+                one nvcc process per source, all at once
   3. k1         K1 (closest hit) against its plain PyTorch version on
                 262,144 random rays: the Cornell triangles and a
                 4,096-triangle soup; hit flips are bounded
   4. k2         K2 (row-span gather) against its plain version on the
                 gather inputs of the full-size frame
-  5. reference  a 32×32 frame on the card (kernels) against the same frame
+  5. k3         K3 (the gather's backward in the photon flux) against its
+                plain version on the same inputs and a random cotangent
+  6. reference  a 32×32 frame on the card (kernels) against the same frame
                 on the CPU (plain versions)
-  6. main       render_photon on the 512×512 glass Cornell box with 262,144
+  7. main       render_photon on the 512×512 glass Cornell box with 262,144
                 photon paths (bench.py's headline settings): a warm-up,
-                then the median of 5 frames, with both kernels' launch
+                then the median of 5 frames, with K1's and K2's launch
                 counts over those frames
+  8. grad_reference  loss_and_grad of a 32×32 frame on the card against the
+                same on the CPU
+  9. grad       loss_and_grad at bench.py's run_grad settings (the headline
+                frame with differentiable=True, zero target, no jitter): a
+                warm-up, then the median of 5 steps, with K1's, K2's and
+                K3's launch counts over those steps
+ 10. train      3 Adam steps of fit at the same settings, from a 1.8×
+                over-bright emitter against the frame rendered at the true
+                parameters
 Then the kernel table as one JSON line, the card line from nvidia-smi, and
 last {"ok": true, "device": {...}}. Any failed check raises, so the script
 exits non-zero and prints no final line.
@@ -25,11 +37,15 @@ exits non-zero and prints no final line.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -37,12 +53,15 @@ import torch
 import raytrace_tpu_torch
 from raytrace_tpu_torch.core import prng
 from raytrace_tpu_torch.core.config import RenderConfig
+from raytrace_tpu_torch.diff import optim
+from raytrace_tpu_torch.diff import render as diff
 from raytrace_tpu_torch.ops import cuda_lib
 from raytrace_tpu_torch.ops import rowspan_gather as rg
 from raytrace_tpu_torch.ops import tri_intersect as ti
 from raytrace_tpu_torch.renderers import common, photon
 from raytrace_tpu_torch.scene import presets
 from raytrace_tpu_torch.scene.camera import generate_rays, pixel_samples
+from raytrace_tpu_torch.scene.scene import GLASS
 
 SIZE = 512
 # bench.py:78-85, the frame users render through render_photon
@@ -61,9 +80,19 @@ K1_RTOL = 1e-5
 # additions, each by 2^-24 of at most the total, so per query the two sides
 # differ by at most 2·M·2^-24 of its flux; counts M are exact.
 K2_ULP = 2.0 ** -24
+# K3 forms each term |n_s·wi|·cot exactly as the plain version does (built
+# with --fmad=false) and only sums in another order; with a nonnegative
+# cotangent every term is ≥ 0, so per photon the two sides differ by at most
+# 2·K·2^-24 of its dα, K its term count; term counts are exact
+K3_ULP = 2.0 ** -24
 # card (kernels) vs CPU (plain versions) at 32×32: transcendentals differ
 # by ulps between the two, which can move a few photon paths
 REF_REL_L1, REF_OFF_FRAC = 1e-3, 0.02
+# the same for loss_and_grad, whose gradients are also summed in another
+# order on the card: the backward of the kd and intensity lookups
+# (vec.take_rows, one-hot products) is a matrix product over 2^10-2^20 rows
+# that cuBLAS sums in its own blocked order
+GRAD_REL = 1e-3
 
 
 def emit(phase: str, **kv) -> None:
@@ -92,12 +121,15 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def phase_build() -> None:
-    t0 = time.perf_counter()
-    secs = {}
-    for name in ("tri_intersect", "rowspan_gather"):
+    def timed(name):
         t1 = time.perf_counter()
         cuda_lib.build(name)
-        secs[name] = time.perf_counter() - t1
+        return time.perf_counter() - t1
+
+    t0 = time.perf_counter()
+    names = ("tri_intersect", "rowspan_gather", "rowspan_gather_bwd")
+    with ThreadPoolExecutor(len(names)) as pool:
+        secs = dict(zip(names, pool.map(timed, names)))
     emit("build", seconds=secs, total_s=time.perf_counter() - t0)
 
 
@@ -153,8 +185,9 @@ def phase_k1(dev, scene):
     return res  # the main path's shape: camera-size batch, 10 triangles
 
 
-def phase_k2(dev, scene, cam, cfg):
-    """K2 on the gather inputs of the full-size frame (first wave)."""
+def gather_jobs(dev, scene, cam, cfg):
+    """The gather inputs of the full-size frame (first wave) → (rowspan_jobs
+    dict, queries, valid photons)."""
     keys = prng.split(prng.PRNGKey(0, dev), 3)
     xy, lens = pixel_samples(keys[0], cfg.width, cfg.height, cfg.spp)
     rays = generate_rays(cam, xy, lens, cfg.spp)
@@ -170,6 +203,11 @@ def phase_k2(dev, scene, cam, cfg):
         photon.gather_cell_size(rec, state), rec.p,
         torch.where(rec.hit, r2, 0.0), rec.ns, r_max=cfg.gather_r_max,
         rounds=rounds, job_budget=budget)
+    return jobs, int(rec.p.shape[0]), int(photons.valid.sum())
+
+
+def phase_k2(jobs, queries, photons):
+    """K2 on the gather inputs of the full-size frame."""
     args = [jobs[k] for k in ("pid", "tile_begin", "tile_end", "n_chunks",
                               "qpT", "qr2", "qnsT", "pdata")]
     got = rg.rowspan_S(*args)
@@ -192,11 +230,51 @@ def phase_k2(dev, scene, cam, cfg):
         min=1e-30)).max())
     ms = cuda_ms(lambda: rg.rowspan_S(*args), 20)
     plain_ms = cuda_ms(lambda: rg.rowspan_S_plain(*args), 2)
-    emit("k2", queries=int(rec.p.shape[0]), tiles=len(jobs["tile_begin"]),
+    emit("k2", queries=queries, tiles=len(jobs["tile_begin"]),
          chunks=jobs["n_chunks"], jobs=int(jobs["n_jobs"]),
-         overflow=int(jobs["overflow"]), photons=int(photons.valid.sum()),
+         overflow=int(jobs["overflow"]), photons=photons,
          pair_tests=int(jobs["n_jobs"]) * rg.TILE_Q * jobs["pdata"].shape[2],
          max_abs_err=err, max_flux=scale, max_err_over_M_ulp=ulps, ms=ms,
+         plain_ms=plain_ms)
+    return err, ms, plain_ms
+
+
+def phase_k3(dev, jobs):
+    """K3 on the same inputs, re-sorted chunk-major, with a nonnegative
+    cotangent from its own generator."""
+    n_tiles = jobs["tile_begin"].shape[0]
+    pid, begin, end = rg.chunk_major(jobs["pid"], jobs["n_valid"],
+                                     jobs["n_chunks"], n_tiles)
+    g = torch.Generator(device=dev).manual_seed(3)
+    cotT = torch.rand(jobs["qpT"].shape, device=dev, generator=g)
+    args = (pid, begin, end, n_tiles, jobs["qpT"], jobs["qr2"], jobs["qnsT"],
+            cotT, jobs["pdata"])
+    got = rg.rowspan_S_bwd(*args)
+    want = rg.rowspan_S_bwd_plain(*args)
+    torch.cuda.synchronize()
+    terms = want[:, 3:4]
+    if not torch.equal(got[:, 3], want[:, 3]):
+        raise AssertionError("K3: photon term counts differ from the plain "
+                             "version")
+    empty = begin == end
+    if bool(got[empty].any()):
+        raise AssertionError("K3: a chunk without jobs is not exactly 0")
+    delta = (got[:, :3] - want[:, :3]).abs()
+    unit = K3_ULP * terms * want[:, :3]
+    if bool((delta > 2.0 * unit).any()):
+        c, r, k = torch.nonzero(delta > 2.0 * unit)[0].tolist()
+        raise AssertionError(
+            f"K3: dalpha of chunk {c} photon {k} row {r} differs by "
+            f"{float(delta[c, r, k])} (want {float(want[c, r, k])}, "
+            f"{float(terms[c, 0, k])} terms)")
+    err = float(delta.max())
+    ulps = float((delta / unit.clamp(min=1e-30)).max())
+    ms = cuda_ms(lambda: rg.rowspan_S_bwd(*args), 20)
+    plain_ms = cuda_ms(lambda: rg.rowspan_S_bwd_plain(*args), 2)
+    emit("k3", jobs=int(jobs["n_valid"]),
+         chunks=jobs["n_chunks"], chunks_without_jobs=int(empty.sum()),
+         terms=float(want[:, 3].sum()), max_abs_err=err,
+         max_dalpha=float(want[:, :3].max()), max_err_over_K_ulp=ulps, ms=ms,
          plain_ms=plain_ms)
     return err, ms, plain_ms
 
@@ -254,17 +332,123 @@ def phase_main(dev, scene, cam, cfg, frames=5):
     return launches, frame_s
 
 
-def profile_frame(dev, scene, cam, cfg, frame_s: float, path: str) -> None:
-    """One frame under torch.profiler: device time by kernel, written to
-    `path`, and the device's busy share of an unprofiled frame (frame_s;
-    the profiler's own overhead inflates its wall time)."""
+def grad_config(cfg: RenderConfig) -> RenderConfig:
+    """bench.py run_grad's settings: the headline frame, differentiable."""
+    return dataclasses.replace(cfg, differentiable=True)
+
+
+def phase_grad_reference(dev):
+    """loss_and_grad of a 32×32 frame: kernels on the card vs plain
+    versions on the CPU."""
+    cfg = grad_config(RenderConfig(**dict(BENCH, width=32, height=32,
+                                          photon_paths=1 << 12)))
+    out = []
+    for device in (dev, "cpu"):
+        scene, cam = presets.cornell_box(device, 32, ball="glass")
+        loss, g = diff.loss_and_grad(
+            diff.extract_params(scene), torch.zeros((32, 32, 3),
+                                                    device=device),
+            scene, cam, cfg, prng.PRNGKey(0, device),
+            common.static_light_samples(scene, cfg), jitter=False)
+        out.append((float(loss), g.kd.cpu(), g.intensity.cpu()))
+    (l_gpu, kd_gpu, in_gpu), (l_cpu, kd_cpu, in_cpu) = out
+    rel = lambda a, b: float((a - b).abs().sum() / b.abs().sum())
+    loss_rel = abs(l_gpu - l_cpu) / l_cpu
+    kd_rel, in_rel = rel(kd_gpu, kd_cpu), rel(in_gpu, in_cpu)
+    if not (torch.isfinite(kd_gpu).all() and torch.isfinite(in_gpu).all()
+            and max(loss_rel, kd_rel, in_rel) <= GRAD_REL):
+        raise AssertionError(f"32x32 loss_and_grad: loss {loss_rel}, kd "
+                             f"{kd_rel}, intensity {in_rel} relative off "
+                             "the CPU reference")
+    emit("grad_reference", size=32, loss_rel=loss_rel, kd_rel_l1=kd_rel,
+         intensity_rel_l1=in_rel)
+
+
+def phase_grad(dev, scene, cam, cfg, steps=5):
+    """loss_and_grad at the headline: a warm-up, then `steps` timed steps
+    with keys folded from key 0 as bench.py run_grad does."""
+    gcfg = grad_config(cfg)
+    ls = common.static_light_samples(scene, gcfg)
+    params = diff.extract_params(scene)
+    target = torch.zeros((SIZE, SIZE, 3), device=dev)
+    key = prng.PRNGKey(0, dev)
+    diff.loss_and_grad(params, target, scene, cam, gcfg, key, ls, False)
+    torch.cuda.synchronize()
+    ti.closest_hit.launches = 0
+    rg.rowspan_S.launches = 0
+    rg.rowspan_S_bwd.launches = 0
+    times = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for i in range(steps):
+            t0 = time.perf_counter()
+            loss, g = diff.loss_and_grad(params, target, scene, cam, gcfg,
+                                         prng.fold_in(key, i + 1), ls, False)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    launches = {"k1": ti.closest_hit.launches, "k2": rg.rowspan_S.launches,
+                "k3": rg.rowspan_S_bwd.launches}
+    overflows = [str(w.message) for w in caught if "overflow" in
+                 str(w.message)]
+    glass = scene.materials.mtype == GLASS
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"grad path skipped a kernel: {launches}")
+    if not (torch.isfinite(g.kd).all() and torch.isfinite(g.intensity).all()
+            and float(g.kd.abs().sum()) > 0.0):
+        raise AssertionError("grad path: gradients not finite, or kd's zero")
+    if bool(g.kd[glass].any()):
+        raise AssertionError(f"grad path: glass kd gradient {g.kd[glass]}")
+    if overflows:
+        raise AssertionError(f"grad path: gather overflow: {overflows}")
+    step_s = statistics.median(times)
+    emit("grad", size=SIZE, photon_paths=gcfg.photon_paths, steps=steps,
+         step_s=times, step_s_median=step_s,
+         grad_rays_per_s=SIZE * SIZE / step_s,
+         grad_photons_per_s=gcfg.photon_paths / step_s,
+         gather_overflow=0, loss=float(loss),
+         grad_kd_abs_sum=float(g.kd.abs().sum()),
+         grad_intensity=g.intensity.tolist(), launches=launches)
+    return launches, step_s
+
+
+def phase_train(dev, scene, cam, cfg, steps=3):
+    """fit from a 1.8× over-bright emitter against the frame rendered at
+    the true parameters with the same key."""
+    gcfg = grad_config(cfg)
+    ls = common.static_light_samples(scene, gcfg)
+    true = diff.extract_params(scene)
+    key = prng.PRNGKey(0, dev)
+    with torch.no_grad():
+        target = diff.render_image_from_params(true, scene, cam, gcfg, key,
+                                               ls, jitter=False)
+    start = dataclasses.replace(true, intensity=true.intensity * 1.8)
+    times = []
+    for n in (1, steps):  # a one-step warm-up: first-use costs excluded
+        t0 = time.perf_counter()
+        got, losses = optim.fit(start, target, scene, cam, gcfg, key,
+                                steps=n, lr=0.1, light_samples=ls)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    train_s = times[-1]
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train: loss did not fall: {losses}")
+    emit("train", steps=steps, losses=losses, warmup_s=times[0],
+         s_per_step=train_s / steps,
+         intensity=got.intensity.tolist(),
+         true_intensity=true.intensity.tolist())
+
+
+def profile_step(phase: str, fn, wall_s: float, path: str) -> None:
+    """fn() once under torch.profiler: device time by kernel, written to
+    `path`, and the device's busy share of wall_s, the unprofiled median of
+    the same step (the profiler's own overhead inflates its wall time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
-        photon.render_photon(scene, cam, cfg, prng.PRNGKey(9, dev))
+        fn()
         torch.cuda.synchronize()
     busy_s = sum(e.device_time_total for e in prof.events()
                  if e.device_type == DeviceType.CUDA) / 1e6
@@ -272,14 +456,15 @@ def profile_frame(dev, scene, cam, cfg, frame_s: float, path: str) -> None:
     with open(path, "w") as f:
         f.write(prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=60))
-    emit("profile", device_busy_s=busy_s, frame_s=frame_s,
-         device_idle_frac=1.0 - busy_s / frame_s)
+    emit(phase, device_busy_s=busy_s, wall_s=wall_s,
+         device_idle_frac=1.0 - busy_s / wall_s)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", metavar="FILE",
-                    help="write a per-kernel device-time table of one frame")
+                    help="write per-kernel device-time tables of one frame "
+                         "(FILE) and one gradient step (FILE.grad)")
     args = ap.parse_args()
     # the kernels must be built from this checkout's sources, not from a
     # copy of the package installed elsewhere
@@ -300,16 +485,36 @@ def main() -> None:
     cfg = RenderConfig(**BENCH)
     scene, cam = presets.cornell_box(dev, SIZE, ball="glass")
     k1 = phase_k1(dev, scene)
-    k2 = phase_k2(dev, scene, cam, cfg)
+    jobs, queries, photons = gather_jobs(dev, scene, cam, cfg)
+    k2 = phase_k2(jobs, queries, photons)
+    k3 = phase_k3(dev, jobs)
+    del jobs
     phase_reference(dev)
     launches, frame_s = phase_main(dev, scene, cam, cfg)
+    phase_grad_reference(dev)
+    grad_launches, step_s = phase_grad(dev, scene, cam, cfg)
+    phase_train(dev, scene, cam, cfg)
     if args.profile:
-        profile_frame(dev, scene, cam, cfg, frame_s, args.profile)
+        profile_step("profile", lambda: photon.render_photon(
+            scene, cam, cfg, prng.PRNGKey(9, dev)), frame_s, args.profile)
+        gcfg = grad_config(cfg)
+        profile_step("profile_grad", lambda: diff.loss_and_grad(
+            diff.extract_params(scene), torch.zeros((SIZE, SIZE, 3),
+                                                    device=dev),
+            scene, cam, gcfg, prng.PRNGKey(9, dev),
+            common.static_light_samples(scene, gcfg), False), step_s,
+            args.profile + ".grad")
 
+    # launches: K1 and K2 over the forward frames of phase main, K3 over
+    # the gradient steps of phase grad
     rows = [("tri_closest", "raytrace_tpu_torch/csrc/tri_intersect.cu",
              "raytrace_tpu/ops/pallas_intersect.py:42", launches["k1"], k1),
             ("rowspan_gather", "raytrace_tpu_torch/csrc/rowspan_gather.cu",
-             "raytrace_tpu/ops/pallas_gather.py:393", launches["k2"], k2)]
+             "raytrace_tpu/ops/pallas_gather.py:393", launches["k2"], k2),
+            ("rowspan_gather_bwd",
+             "raytrace_tpu_torch/csrc/rowspan_gather_bwd.cu",
+             "raytrace_tpu/ops/pallas_gather.py:432", grad_launches["k3"],
+             k3)]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}

@@ -7,6 +7,19 @@ import torch
 from torch import Tensor
 
 
+def take_rows(table: Tensor, idx: Tensor) -> Tensor:
+    """table[idx] for a small parameter table [M, C] and many indices. A
+    table that requires grad is read through a one-hot product, exact in
+    float32 (one term is nonzero), whose backward is one matrix product:
+    autograd's backward of `table[idx]` is a scatter that serialises on the
+    duplicates of each of the M rows, which on the card took ~0.1 s per
+    lookup of a 2^20-row index."""
+    if not table.requires_grad:
+        return table[idx]
+    onehot = torch.nn.functional.one_hot(idx.long(), table.shape[0])
+    return onehot.to(table.dtype) @ table
+
+
 def dot(a: Tensor, b: Tensor) -> Tensor:
     """Batched dot product over the trailing axis."""
     return torch.sum(a * b, dim=-1)

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from raytrace_tpu_torch.diff.render import SceneParams
 from raytrace_tpu_torch.ops.photon_grid import PhotonMap
 from raytrace_tpu_torch.renderers.common import CameraRecords
 from raytrace_tpu_torch.renderers.photon import ProgressiveState
@@ -74,3 +75,7 @@ def photon_map_from_numpy(photons, device) -> PhotonMap:
 
 def state_from_numpy(state, device) -> ProgressiveState:
     return _build(ProgressiveState, state, device)
+
+
+def params_from_numpy(params, device) -> SceneParams:
+    return _build(SceneParams, params, device)

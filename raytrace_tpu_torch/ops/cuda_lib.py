@@ -21,11 +21,12 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-# per-source flags: K1's hit tests and K2's radius tests and weights must
-# round every product and sum like their plain PyTorch versions, so nvcc may
-# not contract a*b+c into an FMA there
+# per-source flags: K1's hit tests and K2's and K3's radius tests and
+# weights must round every product and sum like their plain PyTorch
+# versions, so nvcc may not contract a*b+c into an FMA there
 EXTRA_FLAGS = {"tri_intersect": ("--fmad=false",),
-               "rowspan_gather": ("--fmad=false",)}
+               "rowspan_gather": ("--fmad=false",),
+               "rowspan_gather_bwd": ("--fmad=false",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 

@@ -16,6 +16,13 @@ raise; CPU tensors take `rowspan_S_plain`, which batches jobs as
 [B, 128, chunk] blocks and adds them into their tiles with `index_add_`.
 The TPU kernel ran the list in `rounds` launches because its job ids had to
 fit SMEM; one launch covers every round here, since S adds across rounds.
+
+The gradient (port of `_rowspan_S`'s custom VJP and `_rowspan_bwd_kernel`,
+kernel K3): S is linear in α with weights that depend only on geometry, so
+`RowspanS.backward` runs the transposed sum dα_p = Σ_q w_qp·cot_q over the
+same valid jobs, re-sorted chunk-major (`chunk_major`). `rowspan_S_bwd` is
+K3's wrapper (csrc/rowspan_gather_bwd.cu, one block per photon chunk) with
+`rowspan_S_bwd_plain` beside it, exactly as for K2.
 """
 from __future__ import annotations
 
@@ -35,6 +42,35 @@ _KEY_SENTINEL = 0x40000000  # > any packed key (30 bits)
 _PAIRS_PER_STEP = 1 << 22  # plain version: queries × photons per batch
 
 
+def _expand_ranges(begin: Tensor, end: Tensor):
+    """Per-owner job ranges [begin, end) → (owner of each job, job index),
+    in owner order and, within an owner, in job order."""
+    counts = torch.clamp(end - begin, min=0).long()
+    owner = torch.repeat_interleave(
+        torch.arange(begin.shape[0], device=begin.device), counts)
+    first = torch.cumsum(counts, 0) - counts
+    job = (begin.long()[owner]
+           + torch.arange(owner.shape[0], device=begin.device)
+           - first[owner])
+    return owner, job
+
+
+def _pair_weights(q, r2, ns, t, ph):
+    """(ok, |n_s·wi|·ok) [B, 128, chunk] for B jobs: query tiles t [B] of
+    q/ns [3, n_tiles, 128] and r2 [n_tiles, 128], photon chunks ph
+    [B, 16, chunk]. K2 and K3 form the same pairs in the same way."""
+    r = lambda a: a[:, :, None]  # [B, TQ] → [B, TQ, 1]
+    c = lambda row: ph[:, row, None, :]  # → [B, 1, chunk]
+    dx = r(q[0, t]) - c(0)
+    dy = r(q[1, t]) - c(1)
+    dz = r(q[2, t]) - c(2)
+    dist2 = dx * dx + dy * dy + dz * dz
+    ok = (dist2 < r(r2[t])) & (c(6) > 0.0)
+    w = torch.abs(r(ns[0, t]) * c(3) + r(ns[1, t]) * c(4)
+                  + r(ns[2, t]) * c(5))
+    return ok, torch.where(ok, w, 0.0)
+
+
 def rowspan_S_plain(pid, tile_begin, tile_end, n_chunks, qpT, qr2, qnsT,
                     pdata):
     """Plain PyTorch version of K2 → [4, n_tiles·128]: rows 0-2 the weighted
@@ -42,40 +78,40 @@ def rowspan_S_plain(pid, tile_begin, tile_end, n_chunks, qpT, qr2, qnsT,
     [tile_begin, tile_end) of `pid`, row 3 the count M."""
     n_tiles = tile_begin.shape[0]
     chunk = pdata.shape[2]
-    dev = qpT.device
-    counts = torch.clamp(tile_end - tile_begin, min=0).long()
-    tile_of_job = torch.repeat_interleave(
-        torch.arange(n_tiles, device=dev), counts)
-    first = torch.cumsum(counts, 0) - counts
-    job = (tile_begin.long()[tile_of_job]
-           + torch.arange(tile_of_job.shape[0], device=dev)
-           - first[tile_of_job])
+    tile_of_job, job = _expand_ranges(tile_begin, tile_end)
     chunk_of_job = pid.long()[job] % n_chunks
 
     q = qpT.reshape(3, n_tiles, TILE_Q)
     ns = qnsT.reshape(3, n_tiles, TILE_Q)
     r2 = qr2.reshape(n_tiles, TILE_Q)
-    out = torch.zeros((n_tiles, 4, TILE_Q), dtype=torch.float32, device=dev)
+    out = torch.zeros((n_tiles, 4, TILE_Q), dtype=torch.float32,
+                      device=qpT.device)
     batch = max(1, _PAIRS_PER_STEP // (TILE_Q * chunk))
     for b0 in range(0, tile_of_job.shape[0], batch):
         t = tile_of_job[b0:b0 + batch]
         ph = pdata[chunk_of_job[b0:b0 + batch]]  # [B, 16, chunk]
-        r = lambda a: a[:, :, None]  # [B, TQ] → [B, TQ, 1]
-        c = lambda row: ph[:, row, None, :]  # → [B, 1, chunk]
-        dx = r(q[0, t]) - c(0)
-        dy = r(q[1, t]) - c(1)
-        dz = r(q[2, t]) - c(2)
-        dist2 = dx * dx + dy * dy + dz * dz
-        ok = (dist2 < r(r2[t])) & (c(6) > 0.0)
-        w = torch.abs(r(ns[0, t]) * c(3) + r(ns[1, t]) * c(4)
-                      + r(ns[2, t]) * c(5))
-        wm = torch.where(ok, w, 0.0)
+        ok, wm = _pair_weights(q, r2, ns, t, ph)
+        c = lambda row: ph[:, row, None, :]
         s = torch.stack([torch.sum(wm * c(8), dim=2),
                          torch.sum(wm * c(9), dim=2),
                          torch.sum(wm * c(10), dim=2),
                          torch.sum(ok, dim=2, dtype=torch.float32)], dim=1)
         out.index_add_(0, t, s)
     return out.permute(1, 0, 2).reshape(4, n_tiles * TILE_Q)
+
+
+def _check_inputs(what: str, device, expect) -> None:
+    """Raise unless every (tensor, dtype, shape or None) of `expect` lies on
+    `device` with that dtype and shape and is contiguous."""
+    for a, dtype, shape in expect:
+        if a.device != device or a.dtype != dtype:
+            raise ValueError(f"{what}: expected {dtype} on {device}, "
+                             f"got {a.dtype} on {a.device}")
+        if shape is not None and tuple(a.shape) != shape:
+            raise ValueError(f"{what}: expected shape {shape}, got "
+                             f"{tuple(a.shape)}")
+        if not a.is_contiguous():
+            raise ValueError(f"{what}: inputs must be contiguous")
 
 
 _SIGNATURES = {"rowspan_gather": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
@@ -95,20 +131,12 @@ def rowspan_S(pid, tile_begin, tile_end, n_chunks, qpT, qr2, qnsT, pdata):
     n_tiles = tile_begin.shape[0]
     nq = n_tiles * TILE_Q
     chunk = pdata.shape[2]
-    expect = [(pid, torch.int32, None), (tile_begin, torch.int32, (n_tiles,)),
-              (tile_end, torch.int32, (n_tiles,)),
-              (qpT, torch.float32, (3, nq)), (qr2, torch.float32, (nq,)),
-              (qnsT, torch.float32, (3, nq)),
-              (pdata, torch.float32, (n_chunks, ROWS, chunk))]
-    for a, dtype, shape in expect:
-        if a.device != qpT.device or a.dtype != dtype:
-            raise ValueError(f"rowspan_S: expected {dtype} on {qpT.device}, "
-                             f"got {a.dtype} on {a.device}")
-        if shape is not None and tuple(a.shape) != shape:
-            raise ValueError(f"rowspan_S: expected shape {shape}, got "
-                             f"{tuple(a.shape)}")
-        if not a.is_contiguous():
-            raise ValueError("rowspan_S: inputs must be contiguous")
+    _check_inputs("rowspan_S", qpT.device, [
+        (pid, torch.int32, None), (tile_begin, torch.int32, (n_tiles,)),
+        (tile_end, torch.int32, (n_tiles,)),
+        (qpT, torch.float32, (3, nq)), (qr2, torch.float32, (nq,)),
+        (qnsT, torch.float32, (3, nq)),
+        (pdata, torch.float32, (n_chunks, ROWS, chunk))])
     if not 0 < chunk <= 1024:  # 10 staged rows must fit in 48 KB of smem
         raise ValueError(f"rowspan_S: chunk {chunk} outside (0, 1024]")
     lib = cuda_lib.load("rowspan_gather", _SIGNATURES)
@@ -123,6 +151,126 @@ def rowspan_S(pid, tile_begin, tile_end, n_chunks, qpT, qr2, qnsT, pdata):
 
 
 rowspan_S.launches = 0
+
+
+def chunk_major(pid, n_valid, n_chunks: int, n_tiles: int):
+    """K3's job order (JAX `_rowspan_S_bwd`): the first n_valid jobs of the
+    tile-major list, stably re-sorted by (chunk, tile), and each chunk's
+    range of them → (pid [jobs], chunk_begin, chunk_end [n_chunks]), int32.
+    Fill jobs past n_valid (K2 never runs them) sort last and fall in no
+    range; a chunk that no job touches gets an empty range."""
+    p = pid.long()
+    valid = torch.arange(p.shape[0], device=p.device) < n_valid
+    chunk_id = p % n_chunks
+    key = torch.where(valid, chunk_id * n_tiles + p // n_chunks,
+                      n_chunks * n_tiles)
+    order = torch.argsort(key, stable=True)
+    counts = torch.zeros((n_chunks,), dtype=torch.int64, device=p.device)
+    counts.index_add_(0, chunk_id, valid.long())
+    chunk_end = torch.cumsum(counts, 0)
+    i32 = lambda x: x.to(torch.int32).contiguous()
+    return i32(pid[order]), i32(chunk_end - counts), i32(chunk_end)
+
+
+def rowspan_S_bwd_plain(pid, chunk_begin, chunk_end, n_tiles, qpT, qr2, qnsT,
+                        cotT, pdata):
+    """Plain PyTorch version of K3 → [n_chunks, 4, chunk]: rows 0-2
+    dα_p = Σ_{dist² < r², valid} |n_s·wi_p|·cot_q over the chunk's jobs
+    [chunk_begin, chunk_end) of the chunk-major `pid`, row 3 the photon's
+    term count. A chunk without jobs is 0."""
+    n_chunks, _, chunk = pdata.shape
+    chunk_of_job, job = _expand_ranges(chunk_begin, chunk_end)
+    tile_of_job = pid.long()[job] // n_chunks
+
+    q = qpT.reshape(3, n_tiles, TILE_Q)
+    ns = qnsT.reshape(3, n_tiles, TILE_Q)
+    r2 = qr2.reshape(n_tiles, TILE_Q)
+    cot = cotT.reshape(3, n_tiles, TILE_Q)
+    out = torch.zeros((n_chunks, 4, chunk), dtype=torch.float32,
+                      device=qpT.device)
+    batch = max(1, _PAIRS_PER_STEP // (TILE_Q * chunk))
+    for b0 in range(0, chunk_of_job.shape[0], batch):
+        t = tile_of_job[b0:b0 + batch]
+        cid = chunk_of_job[b0:b0 + batch]
+        ok, wm = _pair_weights(q, r2, ns, t, pdata[cid])
+        r = lambda row: cot[row, t][:, :, None]  # [B, TQ, 1]
+        d = torch.stack([torch.sum(wm * r(0), dim=1),
+                         torch.sum(wm * r(1), dim=1),
+                         torch.sum(wm * r(2), dim=1),
+                         torch.sum(ok, dim=1, dtype=torch.float32)], dim=1)
+        out.index_add_(0, cid, d)
+    return out
+
+
+_BWD_SIGNATURES = {"rowspan_gather_bwd": [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7}
+
+
+def rowspan_S_bwd(pid, chunk_begin, chunk_end, n_tiles, qpT, qr2, qnsT, cotT,
+                  pdata):
+    """Kernel K3 over the chunk-major job list → [n_chunks, 4, chunk] (see
+    rowspan_S_bwd_plain).
+
+    pid [jobs] int32 from `chunk_major`; chunk_begin/chunk_end [n_chunks]
+    int32; qpT/qnsT/cotT [3, NQ], qr2 [NQ] f32; pdata [n_chunks, 16, chunk]
+    f32 (its alpha rows are not read). CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
+    if qpT.device.type == "cpu":
+        return rowspan_S_bwd_plain(pid, chunk_begin, chunk_end, n_tiles, qpT,
+                                   qr2, qnsT, cotT, pdata)
+    n_chunks, _, chunk = pdata.shape
+    nq = n_tiles * TILE_Q
+    _check_inputs("rowspan_S_bwd", qpT.device, [
+        (pid, torch.int32, None), (chunk_begin, torch.int32, (n_chunks,)),
+        (chunk_end, torch.int32, (n_chunks,)),
+        (qpT, torch.float32, (3, nq)), (qr2, torch.float32, (nq,)),
+        (qnsT, torch.float32, (3, nq)), (cotT, torch.float32, (3, nq)),
+        (pdata, torch.float32, (n_chunks, ROWS, chunk))])
+    if not 0 < chunk <= 1024:  # one thread per photon of the chunk
+        raise ValueError(f"rowspan_S_bwd: chunk {chunk} outside (0, 1024]")
+    lib = cuda_lib.load("rowspan_gather_bwd", _BWD_SIGNATURES)
+    out = torch.empty((n_chunks, 4, chunk), dtype=torch.float32,
+                      device=qpT.device)
+    p = cuda_lib.ptr
+    err = lib.rowspan_gather_bwd(p(pid), p(chunk_begin), p(chunk_end),
+                                 n_chunks, n_tiles, chunk, p(qpT), p(qr2),
+                                 p(qnsT), p(cotT), p(pdata), p(out),
+                                 cuda_lib.stream_ptr(qpT.device))
+    cuda_lib.check(err, "rowspan_gather_bwd")
+    rowspan_S_bwd.launches += 1
+    return out
+
+
+rowspan_S_bwd.launches = 0
+
+
+class RowspanS(torch.autograd.Function):
+    """S = K2 over the job list, differentiable in pdata's alpha rows (8-10)
+    through K3 (JAX `_rowspan_S` and its custom VJP). The geometry rows and
+    every other input get no gradient, as JAX stop-gradients them.
+
+    JAX ran one VJP per round; one K3 launch covers every round here, since
+    dα adds across rounds just as S does. Cotangents of tiles that were not
+    scanned completely are already 0: the caller masks S with tile_ok."""
+
+    @staticmethod
+    def forward(ctx, pdata, pid, tile_begin, tile_end, n_chunks, qpT, qr2,
+                qnsT, n_valid):
+        ctx.save_for_backward(pdata, pid, qpT, qr2, qnsT, n_valid)
+        ctx.n_chunks = n_chunks
+        return rowspan_S(pid, tile_begin, tile_end, n_chunks, qpT, qr2, qnsT,
+                         pdata)
+
+    @staticmethod
+    def backward(ctx, grad):
+        pdata, pid, qpT, qr2, qnsT, n_valid = ctx.saved_tensors
+        n_tiles = qpT.shape[1] // TILE_Q
+        pid_cm, begin, end = chunk_major(pid, n_valid, ctx.n_chunks, n_tiles)
+        dout = rowspan_S_bwd(pid_cm, begin, end, n_tiles, qpT, qr2, qnsT,
+                             grad[:3].contiguous(), pdata)
+        d_pdata = torch.zeros_like(pdata)
+        d_pdata[:, 8:11] = dout[:, :3]
+        return d_pdata, None, None, None, None, None, None, None, None
 
 
 def _pack(z, y, x):
@@ -142,7 +290,11 @@ def rowspan_jobs(photons_p, photons_wi, photons_alpha, photons_valid,
     """The prep of gather_radius_pallas_rowspan: sorted photon chunks, sorted
     query tiles and the capacity-cut tile-major job list, as a dict of
     tensors (the kernel's inputs plus what the caller needs to unsort and
-    mask)."""
+    mask). Only the alpha rows of pdata carry autograd history: geometry,
+    queries and radii go in detached, where JAX stop-gradients them."""
+    photons_p, photons_wi, photons_valid, q_p, radius2, q_ns = (
+        x.detach() for x in (photons_p, photons_wi, photons_valid, q_p,
+                             radius2, q_ns))
     dev = q_p.device
     n, p = q_p.shape[0], photons_p.shape[0]
     cs = torch.as_tensor(cell_size, dtype=torch.float32, device=dev)
@@ -263,7 +415,7 @@ def rowspan_jobs(photons_p, photons_wi, photons_alpha, photons_valid,
                 qpT=qpT.contiguous(), qr2=r2_s.contiguous(),
                 qnsT=qnsT.contiguous(), pdata=pdata.contiguous(),
                 qorder=qorder, tile_ok=tile_ok, n_jobs=n_jobs,
-                overflow=overflow)
+                n_valid=n_valid, overflow=overflow)
 
 
 def gather_radius_rowspan(photons_p, photons_alpha, photons_wi,
@@ -277,14 +429,17 @@ def gather_radius_rowspan(photons_p, photons_alpha, photons_wi,
     radius2 = 0 disables a query. cell_size is a free tuning knob: tiles
     reach ceil(max_tile_radius / cell) cells, so results are exact for any
     cell size while overflow is 0. On overflow > 0 the queries of tiles not
-    scanned completely return L = 0, M = 0 and covered = False."""
+    scanned completely return L = 0, M = 0 and covered = False.
+
+    Differentiable in photons_alpha (through RowspanS, kernel K3) and in
+    q_kd_over_pi (plain autograd: kd/π multiplies outside the kernel)."""
     n = q_p.shape[0]
     jobs = rowspan_jobs(photons_p, photons_wi, photons_alpha, photons_valid,
                         cell_size, q_p, radius2, q_ns, chunk=chunk,
                         job_budget=job_budget, r_max=r_max, rounds=rounds)
-    out = rowspan_S(jobs["pid"], jobs["tile_begin"], jobs["tile_end"],
-                    jobs["n_chunks"], jobs["qpT"], jobs["qr2"], jobs["qnsT"],
-                    jobs["pdata"])
+    out = RowspanS.apply(jobs["pdata"], jobs["pid"], jobs["tile_begin"],
+                         jobs["tile_end"], jobs["n_chunks"], jobs["qpT"],
+                         jobs["qr2"], jobs["qnsT"], jobs["n_valid"])
     q_ok = torch.repeat_interleave(jobs["tile_ok"], TILE_Q)
     out = torch.where(q_ok[None, :], out, 0.0)
     unsort = torch.empty_like(jobs["qorder"])

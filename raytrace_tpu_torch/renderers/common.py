@@ -1,7 +1,7 @@
 """Shared render passes: the camera pass with specular chains, and direct
-lighting with shadow rays (port of raytrace_tpu/renderers/common.py,
-forward path only; the differentiable record-and-replay branch is ROADMAP
-Queue A item 9).
+lighting with shadow rays (port of raytrace_tpu/renderers/common.py), plus
+the record-and-replay helpers that make the camera pass and the photon walk
+differentiable in kd and the light intensities.
 
 The JAX camera pass has two forms, chosen by `compact_queue_size`: a
 full-batch loop that re-intersects every lane each bounce (dead lanes get
@@ -9,6 +9,17 @@ an empty t-window), and a compacted one that runs bounce 0 full-width and
 then only the specular survivors. Each lane's outcome is a pure function of
 its own state, so both forms give the same records; the port keeps the
 choice and, being eager, compacts to the exact live set each bounce.
+
+Record and replay (JAX `camera_pass` and `trace_photons` with
+config.differentiable): hit geometry takes no gradient, so the only
+differentiable content of a record is a product of parameter rows. The
+walks run in their fast form under `torch.no_grad()`, recording the chain
+of material ids whose factor contains kd, and `replay` rebuilds the value
+with the gradient of value·N/sg(N), N = Π kd[m_j] (⊙ Le[light] for a
+photon). The walks never run with differentiable=True, so JAX's
+fixed-trip `bounded_loop` branch (and with it `remat_walks`) has nothing to
+do in a render; the port accepts `remat_walks` and ignores it, as JAX's
+render path does.
 """
 from __future__ import annotations
 
@@ -63,8 +74,6 @@ def compact_queue_size(config: RenderConfig, n: int) -> int:
 # config fields that select code paths the port does not have yet → where
 # they come in (ROADMAP Queue A items; the hash-grid gather is not ported)
 _UNPORTED = {
-    "differentiable": "record-and-replay gradients, Queue A item 9",
-    "remat_walks": "record-and-replay gradients, Queue A item 9",
     "use_bvh": "BVH/cluster/epoch intersection, Queue A item 12",
     "intersect_rounds": "BVH/cluster/epoch intersection, Queue A item 12",
     "intersect_budget_scale": "BVH/cluster/epoch intersection, Queue A item 12",
@@ -75,8 +84,8 @@ _DEFAULTS = RenderConfig()
 
 
 def require_forward(config: RenderConfig, what: str) -> None:
-    """Refuse a config that sets a field of a path this forward slice does
-    not port, rather than ignore it."""
+    """Refuse a config that sets a field of a path the port does not have
+    yet, rather than ignore it."""
     for field, item in _UNPORTED.items():
         value = getattr(config, field)
         if value != getattr(_DEFAULTS, field):
@@ -85,13 +94,54 @@ def require_forward(config: RenderConfig, what: str) -> None:
                 f"ported ({item})")
 
 
+def chain_product(kd: Tensor, chain: Tensor, n0: Tensor) -> Tensor:
+    """n0 ⊙ Π_j kd[chain[:, j]] over a recorded chain of material ids
+    [rows, columns] (−1: no factor), multiplied in column order."""
+    n_prod = n0
+    for j in range(chain.shape[1]):
+        m = chain[:, j]
+        n_prod = n_prod * torch.where(
+            (m >= 0)[:, None], vec.take_rows(kd, torch.clamp(m, min=0)), 1.0)
+    return n_prod
+
+
+def replay(value: Tensor, n_prod: Tensor) -> Tensor:
+    """value with the gradient of value·N/sg(N), and 0 gradient where
+    sg(N) = 0 (JAX's sg(value)·N/sg(N)). The primal is `value` itself, bit
+    for bit: N − sg(N) is exactly 0, so the differentiable render equals
+    the forward render."""
+    value = value.detach()
+    n_sg = n_prod.detach()
+    ratio = torch.where(n_sg != 0.0,
+                        value / torch.where(n_sg == 0.0, 1.0, n_sg), 0.0)
+    return value + (n_prod - n_sg) * ratio
+
+
 def camera_pass(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
                 rays=None) -> CameraRecords:
     """Trace camera rays, following specular chains up to the cap
     (reference: raytracing.cu:87-128). rays: the RayDifferentials of the
     first segment; when given, the pixel footprint is recorded at the
-    first hit."""
+    first hit. With config.differentiable, atten carries the gradient of
+    its mirror (kd) factors by record and replay."""
     require_forward(config, "camera_pass")
+    if not config.differentiable:
+        return _camera_walk(scene, o, d, config, rays, record=False)[0]
+    with torch.no_grad():
+        rec, chain = _camera_walk(
+            scene, o, d, dataclasses.replace(config, differentiable=False),
+            rays, record=True)
+    n_prod = chain_product(scene.materials.kd, chain,
+                           torch.ones_like(rec.atten))
+    return dataclasses.replace(rec, atten=replay(rec.atten, n_prod))
+
+
+def _camera_walk(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
+                 rays, record: bool):
+    """The camera pass → (records, chain): with `record`, chain [N,
+    max_specular_depth + 1] holds at column b the material of bounce b where
+    that bounce's throughput is its kd row (mirror; glass throughput is
+    ones, mat_ops.kd_in_specular), else −1; None without."""
     n = o.shape[0]
     dev = o.device
     compact = compact_queue_size(config, n) > 0
@@ -112,6 +162,8 @@ def camera_pass(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
     active = torch.ones((n,), dtype=torch.bool, device=dev)
     o, d = o.clone(), d.clone()
     all_lanes = torch.arange(n, device=dev)
+    chain = (torch.full((n, config.max_specular_depth + 1), -1,
+                        dtype=torch.int32, device=dev) if record else None)
 
     for depth in range(config.max_specular_depth + 1):
         if depth > 0 and not bool(active.any()):
@@ -145,6 +197,11 @@ def camera_pass(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
 
         thr, wi = mat_ops.specular(scene.materials, hit.mat, hit.ns,
                                    hit.dpdu, -dl)
+        if record:
+            rec_m = spec_hit & mat_ops.kd_in_specular(scene.materials,
+                                                      hit.mat)
+            chain[lanes, depth] = torch.where(
+                rec_m, hit.mat.to(torch.int32), chain[lanes, depth])
         s3 = spec_hit[:, None]
         o[lanes] = torch.where(s3, hit.p, ol)
         d[lanes] = torch.where(s3, wi, dl)
@@ -157,7 +214,7 @@ def camera_pass(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
 
     # rays still active past the cap → exception flag (raytracing.cu:98-101)
     rec["status"] = torch.where(active, 2, rec["status"])
-    return CameraRecords(atten=atten, footprint=footprint, **rec)
+    return CameraRecords(atten=atten, footprint=footprint, **rec), chain
 
 
 def static_light_samples(scene: Scene, config: RenderConfig):

@@ -1,6 +1,8 @@
-"""Progressive photon-mapping renderer, forward frame (port of
+"""Progressive photon-mapping renderer (port of
 raytrace_tpu/renderers/photon.py: `trace_photons`, the photon walk,
-`gathering_pass`, `final_gathering` and `render_photon`).
+`gathering_pass`, `final_gathering` and `render_photon`), forward and, with
+config.differentiable, record-and-replay differentiable in kd and the light
+intensities (renderers/common.py `replay`).
 
   1. camera pass     → renderers/common.camera_pass
   2. photon tracing  → trace_photons: permuted-Halton emission, threefry
@@ -129,9 +131,14 @@ def _photon_step(scene: Scene, config: RenderConfig, o, d, alpha, n_int,
                          torch.where(cont, n_int + 1, n_int))
     # a specular path whose throughput went black can never deposit again
     next_alive = next_alive & ~spectrum.is_black(alpha2)
+    # record and replay: a bounce joins the path's chain iff its alpha
+    # factor contains kd — diffuse continuations (f = kd/π) and mirror
+    # bounces (thr = kd), never glass (thr = 1)
+    append = next_alive & (cont | (spec_hit & mat_ops.kd_in_specular(
+        scene.materials, hit.mat)))
     return dict(deposit=deposit, slot=slot, dep_p=hit.p, dep_alpha=alpha,
                 dep_wi=-d, o=o2, d=d2, alpha=alpha2, n_int=n_int2,
-                alive=next_alive)
+                alive=next_alive, append=append, append_mat=hit.mat)
 
 
 def trace_photons(scene: Scene, config: RenderConfig, key: Tensor,
@@ -139,8 +146,31 @@ def trace_photons(scene: Scene, config: RenderConfig, key: Tensor,
     """One photon wave: `photon_paths` light paths, ≤ max_photon_depth
     diffuse deposits each (reference: photontracing.cu:80-185). With
     several lights, paths are striped over the light table by path id
-    (uniform pick, Le scaled by the light count)."""
+    (uniform pick, Le scaled by the light count).
+
+    With config.differentiable, alpha carries the gradient of
+    Le[light] ⊙ Π kd[m_j] over each deposit's recorded chain (record and
+    replay); Russian roulette stays on, its survival and 1/P reweight
+    inside the detached walk (JAX's detached-sampling estimator)."""
     common.require_forward(config, "trace_photons")
+    if not config.differentiable:
+        return _photon_walk(scene, config, key, pass_idx, record=False)[0]
+    with torch.no_grad():
+        pm, chain, light = _photon_walk(
+            scene, dataclasses.replace(config, differentiable=False), key,
+            pass_idx, record=True)
+    n_prod = common.chain_product(
+        scene.materials.kd, chain, vec.take_rows(scene.lights.intensity,
+                                                 light))
+    return dataclasses.replace(pm, alpha=common.replay(pm.alpha, n_prod))
+
+
+def _photon_walk(scene: Scene, config: RenderConfig, key: Tensor,
+                 pass_idx: int, record: bool):
+    """The photon walk → (PhotonMap, chain, light): with `record`, chain
+    [slots, max_photon_bounces] holds at column s the material a slot's path
+    appended at step s before the deposit (−1: none), and light [slots] the
+    light each slot's path left; both None without."""
     dev = key.device
     n_paths = config.photon_paths
     max_depth = config.max_photon_depth
@@ -172,15 +202,21 @@ def trace_photons(scene: Scene, config: RenderConfig, key: Tensor,
                            device=dev)
     n_int = torch.zeros((n_paths,), dtype=torch.int32, device=dev)
     all_lanes = torch.arange(n_paths, device=dev)
+    n_steps = config.max_photon_bounces
+    if record:
+        chain = torch.full((n_paths, n_steps), -1, dtype=torch.int32,
+                           device=dev)
+        ph_chain = torch.full((n_paths, max_depth, n_steps), -1,
+                              dtype=torch.int32, device=dev)
     # full-width steps before the walk narrows to its survivors (JAX:
     # step 0 plus the warm steps of _photon_walk_compact; all of them
     # when compaction is off)
     if common.compact_queue_size(config, n_paths):
         warm = config.compact_warm_steps or (3 if n_paths < (1 << 21) else 1)
-        full_steps = max(1, min(warm, config.max_photon_bounces - 1))
+        full_steps = max(1, min(warm, n_steps - 1))
     else:
-        full_steps = config.max_photon_bounces
-    for it in range(config.max_photon_bounces):
+        full_steps = n_steps
+    for it in range(n_steps):
         if it > 0 and not bool(alive.any()):
             break
         lanes = all_lanes if it < full_steps else alive.nonzero()[:, 0]
@@ -193,13 +229,24 @@ def trace_photons(scene: Scene, config: RenderConfig, key: Tensor,
         ph_alpha[rows, slot] = out["dep_alpha"][dep]
         ph_wi[rows, slot] = out["dep_wi"][dep]
         ph_valid[rows, slot] = True
+        if record:
+            # deposit first (its alpha excludes this surface), then append
+            ph_chain[rows, slot] = chain[rows]
+            app = out["append"]
+            chain[lanes[app], it] = out["append_mat"][app].to(torch.int32)
         o[lanes], d[lanes], alpha[lanes] = out["o"], out["d"], out["alpha"]
         n_int[lanes], alive[lanes] = out["n_int"], out["alive"]
     n_slots = n_paths * max_depth
-    return PhotonMap(p=ph_p.reshape(n_slots, 3),
-                     alpha=ph_alpha.reshape(n_slots, 3),
-                     wi=ph_wi.reshape(n_slots, 3),
-                     valid=ph_valid.reshape(n_slots))
+    pm = PhotonMap(p=ph_p.reshape(n_slots, 3),
+                   alpha=ph_alpha.reshape(n_slots, 3),
+                   wi=ph_wi.reshape(n_slots, 3),
+                   valid=ph_valid.reshape(n_slots))
+    if not record:
+        return pm, None, None
+    light = (torch.repeat_interleave(gids % n_lights, max_depth)
+             if n_lights > 1 else
+             torch.zeros((n_slots,), dtype=torch.int64, device=dev))
+    return pm, ph_chain.reshape(n_slots, n_steps), light
 
 
 def gather_capacity(config: RenderConfig, n_slots: int) -> tuple[int, int]:
@@ -217,7 +264,13 @@ def gathering_pass(scene: Scene, rec: common.CameraRecords,
     config.exact_gather (the oracle the JAX package also offers). Gather
     job-budget overflow is unbiased: a skipped tile returns L = 0, M = 0
     and its pixels leave this wave out of their emitted-path normalization
-    (raise gather_rounds or gather_job_budget to remove it)."""
+    (raise gather_rounds or gather_job_budget to remove it).
+
+    The row-span route stays at every map size under config.differentiable
+    too: its backward is kernel K3. (JAX takes an all-pairs gather for
+    differentiable maps under 2^15 slots only because its CPU fallback was
+    a truncating hash grid; the row-span gather is exact while overflow is
+    0, so the numbers are the same.)"""
     common.require_forward(config, "gathering_pass")
     wo = vec.normalize(-rec.direction)
     kd_over_pi = mat_ops.f(scene.materials, rec.mat, wo, wo, uv=rec.uv)
@@ -278,7 +331,17 @@ def render_photon(scene: Scene, camera: PerspectiveCamera,
                   config: RenderConfig, key: Tensor, jitter: bool = True,
                   return_aux: bool = False):
     """Full progressive photon-mapping render → [H, W, 3] image."""
-    light_samples = common.static_light_samples(scene, config)
+    img, aux = _render_photon(scene, camera, config, key,
+                              common.static_light_samples(scene, config),
+                              jitter)
+    return (img, aux) if return_aux else img
+
+
+def _render_photon(scene: Scene, camera: PerspectiveCamera,
+                   config: RenderConfig, key: Tensor,
+                   light_samples: tuple[int, ...], jitter: bool):
+    """render_photon with the per-light sample counts given → (image,
+    aux dict)."""
     keys = prng.split(key, 3)
     k_pix, k_light, k_photon = keys[0], keys[1], keys[2]
     xy, lens = pixel_samples(k_pix, config.width, config.height, config.spp,
@@ -303,8 +366,6 @@ def render_photon(scene: Scene, camera: PerspectiveCamera,
     L = final_gathering(rec, direct, state)
     img = film.splat(xy, L, config.width, config.height, config.pixel_filter,
                      config.filter_radius)
-    if not return_aux:
-        return img
     aux = dict(
         valid_photons=valid_photons,
         max_cell_occupancy=-1,

@@ -104,7 +104,7 @@ def light_L(lights: Lights, i_light: Tensor, wow: Tensor) -> Tensor:
     (reference: cudalight.cu.h:128-138); i_light -1 = not an emitter."""
     idx = torch.clamp(i_light, min=0).long()
     normal = lights.normal[idx]
-    intensity = lights.intensity[idx]
+    intensity = vec.take_rows(lights.intensity, idx)
     front = vec.dot(normal, wow) > 0.0
     hit = (front & (i_light >= 0))[..., None]
     return torch.where(hit, intensity, torch.zeros_like(intensity))

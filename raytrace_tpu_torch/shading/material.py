@@ -34,7 +34,7 @@ def f(materials: Materials, mat: Tensor, wo_w: Tensor, wi_w: Tensor,
       uv: Tensor | None = None) -> Tensor:
     """Lambert kd/π for matte, black otherwise (cudamaterial.cu.h:17-32)."""
     m = _row(mat)
-    kd = materials.kd[m]
+    kd = vec.take_rows(materials.kd, m)
     if uv is not None:
         kd = kd * texture_eval(materials, mat, uv)[..., None]
     is_matte = (materials.mtype[m] == MATTE) & (mat >= 0)

@@ -217,19 +217,7 @@ def test_render_photon_whole_frame():
         SLOT_FLIP_FRAC * BENCH["photon_paths"] * jcfg.max_photon_depth)
 
 
-def test_differentiable_config_is_refused():
-    """Gradients are not ported yet: each forward pass refuses the
-    differentiable path instead of running its forward-only form."""
-    ps, pc = p_presets.cornell_box("cpu", 8, ball="glass")
-    cfg = PConfig(width=8, height=8, photon_paths=64, differentiable=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        p_photon.render_photon(ps, pc, cfg, prng.PRNGKey(0, "cpu"))
-    with pytest.raises(NotImplementedError, match="Queue A item 9"):
-        p_photon.trace_photons(ps, cfg, prng.PRNGKey(0, "cpu"), 0)
-
-
 @pytest.mark.parametrize("field,value,item", [
-    ("remat_walks", True, "Queue A item 9"),
     ("use_bvh", True, "Queue A item 12"),
     ("intersect_rounds", 2, "Queue A item 12"),
     ("intersect_budget_scale", 2.0, "Queue A item 12"),
