@@ -42,9 +42,10 @@ def threefry2x32(k1: Tensor, k2: Tensor, x1: Tensor, x2: Tensor):
 
 
 def PRNGKey(seed: int, device) -> Tensor:
-    """`jax.random.PRNGKey(seed)`: the 64-bit seed split into (hi, lo)."""
-    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
-    return torch.tensor([seed >> 32, seed & _MASK], dtype=torch.int64,
+    """`jax.random.PRNGKey(seed)` as the JAX package runs it, with 64-bit
+    types off: the seed is a 32-bit integer, so the key is (0, the seed's
+    low 32 bits), for large and negative seeds too."""
+    return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64,
                         device=device)
 
 

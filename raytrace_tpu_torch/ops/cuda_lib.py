@@ -21,12 +21,14 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-# per-source flags: K1's hit tests and K2's and K3's radius tests and
-# weights must round every product and sum like their plain PyTorch
+# per-source flags: K1's hit tests and the gathers' (K2-K5) radius tests
+# and weights must round every product and sum like their plain PyTorch
 # versions, so nvcc may not contract a*b+c into an FMA there
 EXTRA_FLAGS = {"tri_intersect": ("--fmad=false",),
                "rowspan_gather": ("--fmad=false",),
-               "rowspan_gather_bwd": ("--fmad=false",)}
+               "rowspan_gather_bwd": ("--fmad=false",),
+               "dense_gather": ("--fmad=false",),
+               "grid_gather": ("--fmad=false",)}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -86,6 +88,20 @@ def load(name: str, signatures: dict):
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def check_inputs(what: str, device, expect) -> None:
+    """Raise unless every (tensor, dtype, shape or None) of `expect` lies on
+    `device` with that dtype and shape and is contiguous."""
+    for a, dtype, shape in expect:
+        if a.device != device or a.dtype != dtype:
+            raise ValueError(f"{what}: expected {dtype} on {device}, "
+                             f"got {a.dtype} on {a.device}")
+        if shape is not None and tuple(a.shape) != shape:
+            raise ValueError(f"{what}: expected shape {shape}, got "
+                             f"{tuple(a.shape)}")
+        if not a.is_contiguous():
+            raise ValueError(f"{what}: inputs must be contiguous")
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -58,7 +58,8 @@ def _expand_ranges(begin: Tensor, end: Tensor):
 def _pair_weights(q, r2, ns, t, ph):
     """(ok, |n_s·wi|·ok) [B, 128, chunk] for B jobs: query tiles t [B] of
     q/ns [3, n_tiles, 128] and r2 [n_tiles, 128], photon chunks ph
-    [B, 16, chunk]. K2 and K3 form the same pairs in the same way."""
+    [B, rows, chunk] (rows 0-2 p, 3-5 wi, 6 valid). K2, K3 and K5 form the
+    same pairs in the same way."""
     r = lambda a: a[:, :, None]  # [B, TQ] → [B, TQ, 1]
     c = lambda row: ph[:, row, None, :]  # → [B, 1, chunk]
     dx = r(q[0, t]) - c(0)
@@ -76,11 +77,18 @@ def rowspan_S_plain(pid, tile_begin, tile_end, n_chunks, qpT, qr2, qnsT,
     """Plain PyTorch version of K2 → [4, n_tiles·128]: rows 0-2 the weighted
     flux S = Σ_{dist² < r², valid} |n_s·wi|·α over the tile's jobs
     [tile_begin, tile_end) of `pid`, row 3 the count M."""
-    n_tiles = tile_begin.shape[0]
-    chunk = pdata.shape[2]
     tile_of_job, job = _expand_ranges(tile_begin, tile_end)
-    chunk_of_job = pid.long()[job] % n_chunks
+    return tile_sums(tile_of_job, pid.long()[job] % n_chunks,
+                     tile_begin.shape[0], qpT, qr2, qnsT, pdata, alpha_row=8)
 
+
+def tile_sums(tile_of_job, chunk_of_job, n_tiles: int, qpT, qr2, qnsT, pdata,
+              alpha_row: int) -> Tensor:
+    """Σ over (tile, chunk) jobs → [4, n_tiles·128]: per query the weighted
+    flux S (rows 0-2, from pdata rows alpha_row..alpha_row+2) and the count
+    M (row 3) of the photons of its tile's jobs, job by job in order. The
+    plain versions of K2 and K5."""
+    chunk = pdata.shape[2]
     q = qpT.reshape(3, n_tiles, TILE_Q)
     ns = qnsT.reshape(3, n_tiles, TILE_Q)
     r2 = qr2.reshape(n_tiles, TILE_Q)
@@ -89,29 +97,15 @@ def rowspan_S_plain(pid, tile_begin, tile_end, n_chunks, qpT, qr2, qnsT,
     batch = max(1, _PAIRS_PER_STEP // (TILE_Q * chunk))
     for b0 in range(0, tile_of_job.shape[0], batch):
         t = tile_of_job[b0:b0 + batch]
-        ph = pdata[chunk_of_job[b0:b0 + batch]]  # [B, 16, chunk]
+        ph = pdata[chunk_of_job[b0:b0 + batch]]  # [B, rows, chunk]
         ok, wm = _pair_weights(q, r2, ns, t, ph)
         c = lambda row: ph[:, row, None, :]
-        s = torch.stack([torch.sum(wm * c(8), dim=2),
-                         torch.sum(wm * c(9), dim=2),
-                         torch.sum(wm * c(10), dim=2),
+        s = torch.stack([torch.sum(wm * c(alpha_row), dim=2),
+                         torch.sum(wm * c(alpha_row + 1), dim=2),
+                         torch.sum(wm * c(alpha_row + 2), dim=2),
                          torch.sum(ok, dim=2, dtype=torch.float32)], dim=1)
         out.index_add_(0, t, s)
     return out.permute(1, 0, 2).reshape(4, n_tiles * TILE_Q)
-
-
-def _check_inputs(what: str, device, expect) -> None:
-    """Raise unless every (tensor, dtype, shape or None) of `expect` lies on
-    `device` with that dtype and shape and is contiguous."""
-    for a, dtype, shape in expect:
-        if a.device != device or a.dtype != dtype:
-            raise ValueError(f"{what}: expected {dtype} on {device}, "
-                             f"got {a.dtype} on {a.device}")
-        if shape is not None and tuple(a.shape) != shape:
-            raise ValueError(f"{what}: expected shape {shape}, got "
-                             f"{tuple(a.shape)}")
-        if not a.is_contiguous():
-            raise ValueError(f"{what}: inputs must be contiguous")
 
 
 _SIGNATURES = {"rowspan_gather": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
@@ -131,7 +125,7 @@ def rowspan_S(pid, tile_begin, tile_end, n_chunks, qpT, qr2, qnsT, pdata):
     n_tiles = tile_begin.shape[0]
     nq = n_tiles * TILE_Q
     chunk = pdata.shape[2]
-    _check_inputs("rowspan_S", qpT.device, [
+    cuda_lib.check_inputs("rowspan_S", qpT.device, [
         (pid, torch.int32, None), (tile_begin, torch.int32, (n_tiles,)),
         (tile_end, torch.int32, (n_tiles,)),
         (qpT, torch.float32, (3, nq)), (qr2, torch.float32, (nq,)),
@@ -220,7 +214,7 @@ def rowspan_S_bwd(pid, chunk_begin, chunk_end, n_tiles, qpT, qr2, qnsT, cotT,
                                    qr2, qnsT, cotT, pdata)
     n_chunks, _, chunk = pdata.shape
     nq = n_tiles * TILE_Q
-    _check_inputs("rowspan_S_bwd", qpT.device, [
+    cuda_lib.check_inputs("rowspan_S_bwd", qpT.device, [
         (pid, torch.int32, None), (chunk_begin, torch.int32, (n_chunks,)),
         (chunk_end, torch.int32, (n_chunks,)),
         (qpT, torch.float32, (3, nq)), (qr2, torch.float32, (nq,)),

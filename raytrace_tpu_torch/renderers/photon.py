@@ -1,6 +1,7 @@
 """Progressive photon-mapping renderer (port of
 raytrace_tpu/renderers/photon.py: `trace_photons`, the photon walk,
-`gathering_pass`, `final_gathering` and `render_photon`), forward and, with
+`gathering_pass`, `final_gathering`, `render_photon` and the wave-by-wave
+`render_photon_progressive` with checkpoint/resume), forward and, with
 config.differentiable, record-and-replay differentiable in kd and the light
 intensities (renderers/common.py `replay`).
 
@@ -8,7 +9,9 @@ intensities (renderers/common.py `replay`).
   2. photon tracing  → trace_photons: permuted-Halton emission, threefry
                        bounce uniforms, per-bounce Russian roulette
   3. gathering       → gathering_pass: progressive radius/flux update over
-                       the row-span gather (kernel K2) at every map size
+                       the dense small-map gather (kernel K4) for forward
+                       waves under 2^14 slots, else the row-span gather
+                       (kernel K2)
   4. final gather    → final_gathering: L = DL + flux/(π r² N_emitted)
 
 Photon slots are disjoint per path (pm_index = path·max_depth,
@@ -21,6 +24,7 @@ the same per-path results.
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 
 import torch
@@ -29,6 +33,8 @@ from torch import Tensor
 from raytrace_tpu_torch.core import prng, sampling, spectrum, vec
 from raytrace_tpu_torch.core.config import RenderConfig
 from raytrace_tpu_torch.ops import intersect as isect_ops
+from raytrace_tpu_torch.ops.dense_gather import (compact_photons,
+                                                 gather_radius_dense_tiles)
 from raytrace_tpu_torch.ops.photon_grid import PhotonMap, gather_radius_dense
 from raytrace_tpu_torch.ops.rowspan_gather import gather_radius_rowspan
 from raytrace_tpu_torch.renderers import common
@@ -37,10 +43,12 @@ from raytrace_tpu_torch.scene.camera import (PerspectiveCamera,
 from raytrace_tpu_torch.scene.scene import Scene
 from raytrace_tpu_torch.shading import light as light_ops
 from raytrace_tpu_torch.shading import material as mat_ops
-from raytrace_tpu_torch.utils import film
+from raytrace_tpu_torch.utils import checkpoint as ckpt
+from raytrace_tpu_torch.utils import film, metrics
 
 BIG = isect_ops.BIG
 _U32 = 0xFFFFFFFF
+DENSE_GATHER_SLOTS = 1 << 14  # forward maps below this take kernel K4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -259,15 +267,21 @@ def gather_capacity(config: RenderConfig, n_slots: int) -> tuple[int, int]:
 def gathering_pass(scene: Scene, rec: common.CameraRecords,
                    state: ProgressiveState, photons: PhotonMap,
                    config: RenderConfig):
-    """Progressive radius/flux update (reference: gathering.cu:104-126)
-    over the row-span gather, or the exact all-pairs gather with
-    config.exact_gather (the oracle the JAX package also offers). Gather
-    job-budget overflow is unbiased: a skipped tile returns L = 0, M = 0
-    and its pixels leave this wave out of their emitted-path normalization
-    (raise gather_rounds or gather_job_budget to remove it).
+    """Progressive radius/flux update (reference: gathering.cu:104-126).
+    The radius search takes the first route that applies (JAX
+    renderers/photon.py `gathering_pass`):
+      - config.exact_gather: the exact all-pairs oracle the JAX package
+        also offers;
+      - a forward wave of fewer than 2^14 photon slots: the map compacted
+        to its valid prefix and the dense small-map gather, kernel K4;
+      - otherwise the row-span gather, kernel K2.
+    The exact routes cover every pixel. Row-span job-budget overflow is
+    unbiased: a skipped tile returns L = 0, M = 0 and its pixels leave this
+    wave out of their emitted-path normalization (raise gather_rounds or
+    gather_job_budget to remove it).
 
-    The row-span route stays at every map size under config.differentiable
-    too: its backward is kernel K3. (JAX takes an all-pairs gather for
+    The row-span route stays at every map size under config.differentiable:
+    its backward is kernel K3. (JAX takes an all-pairs gather for
     differentiable maps under 2^15 slots only because its CPU fallback was
     a truncating hash grid; the row-span gather is exact while overflow is
     0, so the numbers are the same.)"""
@@ -275,10 +289,17 @@ def gathering_pass(scene: Scene, rec: common.CameraRecords,
     wo = vec.normalize(-rec.direction)
     kd_over_pi = mat_ops.f(scene.materials, rec.mat, wo, wo, uv=rec.uv)
     n_slots = photons.p.shape[0]
+    n_valid = photons.valid.sum().to(torch.int32)
     if config.exact_gather:
-        # the exact all-pairs oracle: no job budget, every pixel covered
         idl, m = gather_radius_dense(photons, rec.p, state.radius2, rec.ns,
                                      kd_over_pi)
+        overflow = torch.zeros((), dtype=torch.int64, device=m.device)
+        covered = torch.ones_like(rec.hit)
+    elif not config.differentiable and n_slots < DENSE_GATHER_SLOTS:
+        # misses need no zero radius here: their M is masked below
+        pp, pa, pw, pv, n_valid = compact_photons(photons)
+        idl, m = gather_radius_dense_tiles(pp, pa, pw, pv, n_valid, rec.p,
+                                           state.radius2, rec.ns, kd_over_pi)
         overflow = torch.zeros((), dtype=torch.int64, device=m.device)
         covered = torch.ones_like(rec.hit)
     else:
@@ -293,7 +314,7 @@ def gathering_pass(scene: Scene, rec: common.CameraRecords,
             f"gather job budget overflow by {int(overflow)} jobs — affected "
             "pixel tiles skip this wave (excluded from their normalization);"
             " raise gather_rounds", RuntimeWarning)
-    info = dict(valid_photons=photons.valid.sum().to(torch.int32),
+    info = dict(valid_photons=n_valid,
                 max_cell_occupancy=-1,  # -1: exact path, no per-cell budget
                 gather_overflow=overflow)
 
@@ -337,11 +358,11 @@ def render_photon(scene: Scene, camera: PerspectiveCamera,
     return (img, aux) if return_aux else img
 
 
-def _render_photon(scene: Scene, camera: PerspectiveCamera,
-                   config: RenderConfig, key: Tensor,
-                   light_samples: tuple[int, ...], jitter: bool):
-    """render_photon with the per-light sample counts given → (image,
-    aux dict)."""
+def _ppm_setup(scene: Scene, camera: PerspectiveCamera, config: RenderConfig,
+               key: Tensor, light_samples: tuple[int, ...], jitter: bool):
+    """Deterministic per-render setup → (pixel samples, camera records,
+    direct light, zeroed PPM state, photon key). Recomputed, not
+    checkpointed, on resume: it is a pure function of (key, config)."""
     keys = prng.split(key, 3)
     k_pix, k_light, k_photon = keys[0], keys[1], keys[2]
     xy, lens = pixel_samples(k_pix, config.width, config.height, config.spp,
@@ -356,11 +377,28 @@ def _render_photon(scene: Scene, camera: PerspectiveCamera,
     state = ProgressiveState(radius2=initial_radius2(rec, config),
                              photon_count=zeros(), flux=zeros(3),
                              emitted=zeros())
+    return xy, rec, direct, state, k_photon
+
+
+def _ppm_wave(scene: Scene, rec: common.CameraRecords,
+              state: ProgressiveState, k_photon: Tensor, pass_idx: int,
+              config: RenderConfig):
+    """One progressive photon wave: trace + gather + radius/flux update."""
+    photons = trace_photons(scene, config, k_photon, pass_idx)
+    return gathering_pass(scene, rec, state, photons, config)
+
+
+def _render_photon(scene: Scene, camera: PerspectiveCamera,
+                   config: RenderConfig, key: Tensor,
+                   light_samples: tuple[int, ...], jitter: bool):
+    """render_photon with the per-light sample counts given → (image,
+    aux dict)."""
+    xy, rec, direct, state, k_photon = _ppm_setup(scene, camera, config, key,
+                                                  light_samples, jitter)
     valid_photons = 0
     gather_ovf = 0
     for p in range(config.photon_passes):
-        photons = trace_photons(scene, config, k_photon, p)
-        state, info = gathering_pass(scene, rec, state, photons, config)
+        state, info = _ppm_wave(scene, rec, state, k_photon, p, config)
         valid_photons = valid_photons + info["valid_photons"]
         gather_ovf = gather_ovf + info["gather_overflow"]
     L = final_gathering(rec, direct, state)
@@ -376,3 +414,60 @@ def _render_photon(scene: Scene, camera: PerspectiveCamera,
         mean_photon_count=torch.mean(state.photon_count),
     )
     return img, aux
+
+
+def render_photon_progressive(scene: Scene, camera: PerspectiveCamera,
+                              config: RenderConfig, key: Tensor,
+                              jitter: bool = True,
+                              checkpoint_path: str | None = None,
+                              save_every: int = 1, verbose: bool = False,
+                              return_aux: bool = False):
+    """Wave-by-wave progressive render with optional checkpoint/resume.
+
+    If checkpoint_path exists, rendering resumes from the stored wave;
+    otherwise the state is written every `save_every` waves and after the
+    last one (utils/checkpoint.py, the JAX package's file format). Waves are
+    pure functions of (key, pass index), so resumed == uninterrupted. With
+    verbose, one `log_pass` line per wave (utils/metrics.py).
+
+    Returns (image [H, W, 3], ProgressiveState); with return_aux, a third
+    dict: gather_overflow summed over the executed waves, pair_overflow (0:
+    no pair budget without the cluster engines), and wave_s, each executed
+    wave's wall time in seconds, device work included."""
+    light_samples = common.static_light_samples(scene, config)
+    xy, rec, direct, state, k_photon = _ppm_setup(scene, camera, config, key,
+                                                  light_samples, jitter)
+    gather_ovf = 0
+    wave_s = []
+    start = 0
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        state, start, _, _ = ckpt.load_progressive(checkpoint_path,
+                                                   key.device)
+    for p in range(start, config.photon_passes):
+        with metrics.Throughput() as tp:
+            state, info = _ppm_wave(scene, rec, state, k_photon, p, config)
+            if state.flux.is_cuda:
+                torch.cuda.synchronize(state.flux.device)
+        wave_s.append(tp.seconds)
+        gather_ovf = gather_ovf + info["gather_overflow"]
+        if verbose:
+            metrics.log_pass(
+                "photon_wave", wave=p,
+                valid_photons=int(info["valid_photons"]),
+                photons_per_s=f"{tp.rate(config.photon_paths):.3e}",
+                mean_radius2=float(torch.mean(
+                    torch.where(rec.hit, state.radius2, 0.0))))
+        done = p + 1
+        if checkpoint_path and save_every and (
+                done % save_every == 0 or done == config.photon_passes):
+            ckpt.save_progressive(
+                checkpoint_path, state, done, key,
+                emitted_photons=float(config.photon_paths) * done)
+    L = final_gathering(rec, direct, state)
+    img = film.splat(xy, L, config.width, config.height, config.pixel_filter,
+                     config.filter_radius)
+    if return_aux:
+        aux = dict(pair_overflow=0, gather_overflow=gather_ovf,
+                   wave_s=wave_s)
+        return img, state, aux
+    return img, state

@@ -131,10 +131,14 @@ def test_loss_and_grad_matches_jax(ball):
         assert not n(pg.kd)[3].any() and not np.asarray(jg.kd)[3].any()
 
 
-def test_differentiable_primal_equals_forward_render():
+def test_differentiable_primal_equals_forward_render(monkeypatch):
     """Record and replay changes no primal value: the differentiable frame
     is the forward frame bit for bit (glass box: camera chains and photon
-    walks through the ball, every gather through RowspanS)."""
+    walks through the ball, every gather through RowspanS). A forward wave
+    of this size (4,096 slots) would take the dense small-map gather K4,
+    which adds the same terms in another order, so the forward frame is
+    held on the row-span gather the differentiable frame runs."""
+    monkeypatch.setattr(p_photon, "DENSE_GATHER_SLOTS", 0)
     _, _, _, ps, pc, pcfg, ls = _setup("glass")
     params = p_diff.extract_params(ps)
     leaves = p_diff.SceneParams(kd=params.kd.clone().requires_grad_(True),

@@ -28,6 +28,13 @@ def test_prng_key(seed):
     np.testing.assert_array_equal(n(jk), n(pk))
 
 
+@pytest.mark.parametrize("seed", [2**32 + 5, (7 << 32) | 0xDEADBEEF, -1])
+def test_prng_key_of_seeds_outside_uint32(seed):
+    """JAX takes the seed's low 32 bits (64-bit types are off)."""
+    jk, pk = _keys(seed)
+    np.testing.assert_array_equal(n(jk), n(pk))
+
+
 @pytest.mark.parametrize("seed", SEEDS)
 @pytest.mark.parametrize("num", [2, 3])
 def test_split(seed, num):
