@@ -3,13 +3,15 @@
     python3 chip_smoke.py                   # the whole check, a few minutes
     python3 chip_smoke.py --profile FILE    # also torch.profiler tables of a
                                             # frame, a gradient step, a
-                                            # preview render and a simple
-                                            # frame, written to FILE*
+                                            # preview render, a simple
+                                            # frame and a large frame,
+                                            # written to FILE*
 
 Phases, one JSON result line each:
   1. device     the card's name and power limit; raises without CUDA
-  2. build      nvcc builds kernels K1-K5 from raytrace_tpu_torch/csrc, one
-                nvcc process per source, all at once
+  2. build      nvcc builds kernels K1-K5, K8 and K9 from
+                raytrace_tpu_torch/csrc, and g++ the host BVH builder, one
+                compiler process per source, all at once
   3. k1         K1 (closest hit) against its plain PyTorch version on
                 262,144 random rays: the Cornell triangles and a
                 4,096-triangle soup; hit flips are bounded
@@ -47,6 +49,23 @@ Phases, one JSON result line each:
  15. simple     render_simple on the 256×256 sphere and plane (BASELINE
                 config[0]): a warm-up, then the median of 5 frames; and a
                 32×32 frame on the card against the CPU's
+The large-scene path (BASELINE config[4], 4,194,304 triangles):
+ 16. build_large  host time of triangle_field(1 << 22, 512): the SAH build,
+                the cluster set and the upload; node and cluster counts
+ 17. k8, k9     K8 (epoch cull) and K9 (subtile Möller–Trumbore) against
+                their plain versions on the frame's own launches, captured
+                from the epoch engine: the camera launch (262,144 rays) in
+                full and the photon emission launch (4,194,304 rays) on a
+                slice of its tiles and jobs; mask bytes, t and idx equal
+ 18. engine     the epoch engine against the BVH traversal on the camera
+                launch: t within 1e-5, idx differences counted, overflow 0
+ 19. large_simple  render_simple at bench.py run_triangle_field's settings
+                (512², 1 spp) on the same scene: a warm-up and 3 frames
+ 20. large      render_photon at bench.py run_combined's settings (2^22
+                paths, 16.8M slots): a 32×32 triangle_field(2048) frame on
+                the card against the CPU's, a warm-up and 2 frames with K8,
+                K9 and K2 launch counts, and one profiled frame (device busy
+                share, K8/K9/K2 device ms)
 Then the kernel table as one JSON line, the card line from nvidia-smi, and
 last {"ok": true, "device": {...}}. Any failed check raises, so the script
 exits non-zero and prints no final line.
@@ -54,6 +73,7 @@ exits non-zero and prints no final line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import logging
@@ -75,8 +95,11 @@ from raytrace_tpu_torch.core import prng
 from raytrace_tpu_torch.core.config import RenderConfig
 from raytrace_tpu_torch.diff import optim
 from raytrace_tpu_torch.diff import render as diff
+from raytrace_tpu_torch.ops import bvh as bvh_ops
 from raytrace_tpu_torch.ops import cuda_lib
 from raytrace_tpu_torch.ops import dense_gather as dg
+from raytrace_tpu_torch.ops import epoch_intersect as ei
+from raytrace_tpu_torch.ops import epoch_kernels as ek
 from raytrace_tpu_torch.ops import grid_gather as gg
 from raytrace_tpu_torch.ops import rowspan_gather as rg
 from raytrace_tpu_torch.ops import tri_intersect as ti
@@ -100,6 +123,21 @@ K5_PATHS = 1 << 16
 # BASELINE config[0] as examples/render_sphere_plane.py renders it
 SIMPLE = dict(width=256, height=256, spp=4, scene_epsilon=1e-3)
 N_RAYS = 1 << 18
+# BASELINE config[4] as bench.py run_combined renders it (bench.py:237-262):
+# triangle_field(1 << 22, 512), 2^22 paths × 4 deposits = 16.8M slots
+LARGE_TRIS = 1 << 22
+LARGE = dict(BENCH, photon_paths=1 << 22, initial_radius2=0.04)
+# bench.py run_triangle_field's settings (bench.py:377-390), on that scene
+LARGE_SIMPLE = dict(width=SIZE, height=SIZE, spp=1, scene_epsilon=1e-3)
+# the emission launch's kernels are held against their plain versions on
+# its first tiles (K8) and jobs (K9): the whole takes the plain versions
+# tens of seconds
+EMISSION_CHECK_TILES = 2048
+EMISSION_CHECK_JOBS = 1 << 16
+# the epoch engine against the BVH traversal: both exact, the same
+# arithmetic per triangle; t within 1e-5 relative where both hit, at most a
+# 1e-4 share of the rays hit on one side only
+ENGINE_RTOL, ENGINE_FLIP_FRAC = 1e-5, 1e-4
 BIG = 1e30
 # the card's published peaks (H100 SXM data sheet, dense, at 700 W): fp32
 # outside the tensor cores, and device memory
@@ -112,6 +150,11 @@ PEAK_BYTES = 3.35e12
 # pair inside the radius its weight |n_s·wi| (3 products, 2 sums, abs),
 # 3 products and 3 sums into S (K3: into dalpha) and the count
 K1_PAIR_OPS = 53
+# K8's ray-box test (csrc/epoch_cull.cu): 6 differences, 6 products, 3 min
+# and 3 max per slab, 2 max and 2 min across the slabs, the clamp to tmin,
+# 5 compares and 4 ands; K9's ray-triangle test is K1's
+K8_TEST_OPS = 32
+K9_PAIR_OPS = K1_PAIR_OPS
 GATHER_TEST_OPS = 10
 GATHER_HIT_OPS = 13
 # K1 runs with --fmad=false, so it rounds like the plain version; allow a
@@ -205,11 +248,18 @@ def phase_build() -> None:
         cuda_lib.build(name)
         return time.perf_counter() - t1
 
+    def timed_host(name):
+        t1 = time.perf_counter()
+        cuda_lib.build_host(name)
+        return time.perf_counter() - t1
+
     t0 = time.perf_counter()
     names = ("tri_intersect", "rowspan_gather", "rowspan_gather_bwd",
-             "dense_gather", "grid_gather")
-    with ThreadPoolExecutor(len(names)) as pool:
+             "dense_gather", "grid_gather", "epoch_cull", "epoch_mt")
+    with ThreadPoolExecutor(len(names) + 1) as pool:
+        host = pool.submit(timed_host, "bvh_builder")
         secs = dict(zip(names, pool.map(timed, names)))
+        secs["bvh_builder"] = host.result()
     emit("build", seconds=secs, total_s=time.perf_counter() - t0)
 
 
@@ -734,10 +784,319 @@ def phase_simple(dev, frames=5):
     return scene, cam, frame_s
 
 
-def profile_step(phase: str, fn, wall_s: float, path: str) -> None:
-    """fn() once under torch.profiler: device time by kernel, written to
-    `path`, and the device's busy share of wall_s, the unprofiled median of
-    the same step (the profiler's own overhead inflates its wall time)."""
+class _BuildLog(logging.Handler):
+    """Collects the fields of the builder's `scene_build` line."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.fields = {}
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith("pass=scene_build "):
+            self.fields = dict(kv.split("=", 1) for kv in msg.split()[1:])
+
+
+def phase_build_large(dev):
+    """triangle_field(1 << 22, 512) on the card: host seconds of the whole
+    build and of its SAH build, cluster set and upload (the builder's
+    scene_build line)."""
+    log = _BuildLog()
+    logger = logging.getLogger("raytrace_tpu_torch")
+    logger.addHandler(log)
+    logger.setLevel(logging.INFO)
+    try:
+        t0 = time.perf_counter()
+        scene, cam = presets.triangle_field(dev, LARGE_TRIS, SIZE)
+        total_s = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(log)
+    f = log.fields
+    if int(f["triangles"]) != LARGE_TRIS or scene.clusters is None:
+        raise AssertionError(f"build_large: {f}")
+    emit("build_large", triangles=LARGE_TRIS, nodes=int(f["nodes"]),
+         clusters=int(f["clusters"]),
+         cluster_size=int(scene.clusters.tv.shape[2]),
+         bvh_max_depth=scene.bvh.max_depth, total_s=total_s,
+         bvh_s=float(f["bvh_s"]), clusters_s=float(f["clusters_s"]),
+         upload_s=float(f["upload_s"]))
+    return scene, cam
+
+
+@contextlib.contextmanager
+def recording(module, name):
+    """Swap the kernel wrapper module.<name> for one that keeps each call's
+    arguments (the list yielded); its launch count carries over."""
+    orig = getattr(module, name)
+    calls = []
+
+    def rec(*args):
+        calls.append(args)
+        return orig(*args)
+
+    rec.launches = orig.launches
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        orig.launches = rec.launches
+        setattr(module, name, orig)
+
+
+def large_launches(dev, scene, cam, cfg):
+    """The large frame's first camera launch and its photon emission launch
+    as render_photon casts them with key 0 → [(name, o, d, tmin, tmax)]."""
+    keys = prng.split(prng.PRNGKey(0, dev), 3)
+    xy, lens = pixel_samples(keys[0], cfg.width, cfg.height, cfg.spp)
+    rays = generate_rays(cam, xy, lens, cfg.spp)
+    em = photon.emission(scene, cfg, keys[2], 0)
+    full = lambda x, v: torch.full((x.shape[0],), v, device=dev)
+    return [("camera", rays.o, rays.d, full(rays.o, cfg.scene_epsilon),
+             full(rays.o, BIG)),
+            ("emission", em["o"], em["d"], full(em["o"], cfg.scene_epsilon),
+             torch.where(em["alive"], BIG, 0.0))]
+
+
+def _k8_case(label, epoch, args, tiles, iters):
+    """K8 on one captured call against the plain version on its first
+    `tiles` tiles (all of them when None)."""
+    o, inv, tmin, tbest, w0, w1, cmin, cmax, n_live = args
+    got = ek.cull_bits(*args)
+    n_tiles = got.shape[1]
+    tiles = n_tiles if tiles is None else min(tiles, n_tiles)
+    part = [a[:tiles * ek.TILE] for a in args[:6]] + [cmin, cmax, n_live]
+    want = ek.cull_bits_plain(*part)
+    torch.cuda.synchronize()
+    bad = int((got[:, :tiles] != want).sum())
+    if bad:
+        raise AssertionError(f"K8 {label} epoch {epoch}: {bad} mask bytes "
+                             "differ from the plain version")
+    ms = cuda_ms(lambda: ek.cull_bits(*args), iters)
+    plain_ms = cuda_ms(lambda: ek.cull_bits_plain(*part), 1)
+    n_clusters = cmin.shape[0]
+    live_tiles = -(-int(n_live) // ek.TILE)
+    tests = live_tiles * ek.TILE * n_clusters
+    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+               **bound(K8_TEST_OPS * tests,
+                       o.shape[0] * 10 * 4 + n_clusters * (6 * 4 + n_tiles)
+                       + 4), library_ms=None)
+    emit("k8", launch=label, epoch=epoch, rays=o.shape[0], tiles=n_tiles,
+         live_tiles=live_tiles, clusters=n_clusters, tests=tests,
+         checked_tiles=tiles, set_bytes=int((got != 0).sum()),
+         plain_on_checked_tiles=tiles < n_tiles, **row)
+    return row
+
+
+def _k9_case(label, epoch, args, jobs, iters):
+    """K9 on one captured call against the plain version on its first
+    `jobs` jobs (all of them when None)."""
+    job_cluster, job_subtile, o, d, tmin, tmax, tv = args
+    t_got, i_got = ek.mt_jobs(*args)
+    n_jobs = job_cluster.shape[0]
+    jobs = n_jobs if jobs is None else min(jobs, n_jobs)
+    part = (job_cluster[:jobs], job_subtile[:jobs]) + args[2:]
+    t_want, i_want = ek.mt_jobs_plain(*part)
+    torch.cuda.synchronize()
+    if not (torch.equal(t_got[:jobs], t_want)
+            and torch.equal(i_got[:jobs], i_want)):
+        bad = int(((t_got[:jobs] != t_want) | (i_got[:jobs] != i_want)).sum())
+        raise AssertionError(f"K9 {label} epoch {epoch}: (t, idx) of {bad} "
+                             "rows differ from the plain version")
+    ms = cuda_ms(lambda: ek.mt_jobs(*args), iters)
+    plain_ms = cuda_ms(lambda: ek.mt_jobs_plain(*part), 1)
+    s = tv.shape[2]
+    pairs = n_jobs * ek.SUB * s
+    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+               **bound(K9_PAIR_OPS * pairs,
+                       n_jobs * 8 + o.shape[0] * 8 * 4 + tv.numel() * 4
+                       + n_jobs * ek.SUB * 8), library_ms=None)
+    emit("k9", launch=label, epoch=epoch, jobs=n_jobs, triangles_per_job=s,
+         pair_tests=pairs, hits=int((t_got < BIG).sum()), checked_jobs=jobs,
+         plain_on_checked_jobs=jobs < n_jobs, **row)
+    return row
+
+
+def phase_k8_k9(launches, scene):
+    """The epoch engine on the frame's camera and emission launches, with
+    every K8 and K9 call captured and held against the plain version →
+    (K8 row, K9 row, camera launch result) for the kernel table: the
+    camera launch's first epoch, checked in full."""
+    rows, camera = {}, None
+    for label, o, d, tmin, tmax in launches:
+        with recording(ek, "cull_bits") as k8_calls, \
+                recording(ek, "mt_jobs") as k9_calls:
+            res = ei.intersect_epochs(scene.clusters, o, d, tmin, tmax)
+        if int(res[3]):
+            raise AssertionError(f"{label} launch: pair overflow "
+                                 f"{int(res[3])}")
+        if not (k8_calls and k9_calls):
+            raise AssertionError(f"{label} launch: K8 called "
+                                 f"{len(k8_calls)}, K9 {len(k9_calls)} times")
+        full = label == "camera"
+        for e, args in enumerate(k8_calls):
+            row = _k8_case(label, e, args,
+                           None if full else EMISSION_CHECK_TILES,
+                           10 if full else 3)
+            rows.setdefault(("k8", label), row)
+        for e, args in enumerate(k9_calls):
+            row = _k9_case(label, e, args,
+                           None if full else EMISSION_CHECK_JOBS,
+                           10 if full else 3)
+            rows.setdefault(("k9", label), row)
+        if full:
+            camera = (o, d, tmin, tmax, res)
+        del k8_calls, k9_calls
+    return rows[("k8", "camera")], rows[("k9", "camera")], camera
+
+
+def phase_engine(scene, camera):
+    """The epoch engine's camera launch against the BVH traversal."""
+    o, d, tmin, tmax, (t_e, i_e, n_sp, ovf) = camera
+    t0 = time.perf_counter()
+    t_b, i_b = bvh_ops._traverse(scene.bvh, scene.tris, o, d, tmin, tmax,
+                                 any_hit=False)
+    torch.cuda.synchronize()
+    traverse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ei.intersect_epochs(scene.clusters, o, d, tmin, tmax)
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    hit_e, hit_b = t_e < BIG, t_b < BIG
+    flips = int((hit_e != hit_b).sum())
+    both = hit_e & hit_b
+    rel = float(((t_e - t_b).abs() / t_b.abs().clamp(min=1e-30))[both].max())
+    idx_differ = int((both & (i_e != i_b)).sum())
+    if (int(ovf) or flips > ENGINE_FLIP_FRAC * o.shape[0]
+            or rel > ENGINE_RTOL):
+        raise AssertionError(f"engine: overflow {int(ovf)}, {flips} flips, "
+                             f"t off by {rel} relative")
+    emit("engine", rays=o.shape[0], hits=int(both.sum()), flips=flips,
+         max_t_rel_err=rel, idx_differ=idx_differ, n_subpairs=int(n_sp),
+         pair_overflow=0, engine_s=engine_s, bvh_traverse_s=traverse_s)
+
+
+def _kernel_counts():
+    return {"k8": ek.cull_bits.launches, "k9": ek.mt_jobs.launches,
+            "k2": rg.rowspan_S.launches}
+
+
+def _reset_kernel_counts():
+    ek.cull_bits.launches = ek.mt_jobs.launches = rg.rowspan_S.launches = 0
+
+
+def phase_large_simple(dev, scene, cam, frames=3):
+    """render_simple at run_triangle_field's settings on the 4M scene."""
+    cfg = RenderConfig(**LARGE_SIMPLE)
+    simple.render_simple(scene, cam, cfg, prng.PRNGKey(0, dev))
+    torch.cuda.synchronize()
+    _reset_kernel_counts()
+    times = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for i in range(frames):
+            t0 = time.perf_counter()
+            img = simple.render_simple(scene, cam, cfg,
+                                       prng.PRNGKey(i + 1, dev))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    counts = _kernel_counts()
+    overflows = [str(w.message) for w in caught
+                 if "overflow" in str(w.message)]
+    if overflows:
+        raise AssertionError(f"large_simple: {overflows}")
+    if min(counts["k8"], counts["k9"]) <= 0:
+        raise AssertionError(f"large_simple skipped a kernel: {counts}")
+    if not (bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0):
+        raise AssertionError("large_simple: image not finite or black")
+    frame_s = statistics.median(times)
+    emit("large_simple", size=SIZE, spp=cfg.spp, triangles=LARGE_TRIS,
+         frames=frames, frame_s=times, frame_s_median=frame_s,
+         rays_per_s=SIZE * SIZE * cfg.spp / frame_s,
+         launches_per_frame={k: v / frames for k, v in counts.items()
+                             if k != "k2"},
+         image_mean=float(img.mean()))
+    return frame_s
+
+
+def phase_large_reference(dev):
+    """A 32×32 run_combined frame of triangle_field(2048): kernels on the
+    card against plain versions on the CPU."""
+    cfg = RenderConfig(**dict(LARGE, width=32, height=32,
+                              photon_paths=1 << 14))
+    imgs = []
+    for device in (dev, "cpu"):
+        scene, cam = presets.triangle_field(device, 2048, 32)
+        img, aux = photon.render_photon(scene, cam, cfg,
+                                        prng.PRNGKey(0, device),
+                                        return_aux=True)
+        if int(aux["pair_overflow"]) or int(aux["gather_overflow"]):
+            raise AssertionError(f"32x32 triangle_field on {device}: {aux}")
+        imgs.append(img.cpu())
+    gpu, cpu = imgs
+    rel_l1 = float((gpu - cpu).abs().sum() / cpu.abs().sum())
+    if not (torch.isfinite(gpu).all() and rel_l1 <= REF_REL_L1):
+        raise AssertionError(f"32x32 triangle_field frame: rel L1 {rel_l1} "
+                             "against the CPU")
+    return rel_l1
+
+
+def phase_large(dev, scene, cam, profile_path=None, frames=2):
+    """render_photon at run_combined's settings: the card-vs-CPU check at
+    32×32, a warm-up, `frames` timed frames, and one profiled frame (its
+    table written to profile_path when given)."""
+    ref_rel_l1 = phase_large_reference(dev)
+    cfg = RenderConfig(**LARGE)
+    photon.render_photon(scene, cam, cfg, prng.PRNGKey(0, dev))
+    torch.cuda.synchronize()
+    _reset_kernel_counts()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(frames):
+        t0 = time.perf_counter()
+        img, aux = photon.render_photon(scene, cam, cfg,
+                                        prng.PRNGKey(i + 1, dev),
+                                        return_aux=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    counts = _kernel_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    valid = int(aux["valid_photons"])
+    overflow = {k: int(aux[k]) for k in ("gather_overflow", "pair_overflow")}
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"large path skipped a kernel: {counts}")
+    if any(overflow.values()):
+        raise AssertionError(f"large path: overflow {overflow}")
+    if img.shape != (SIZE, SIZE, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError("large path: image not finite or mis-shaped")
+    if not float(img.mean()) > 0.0 or valid <= 0:
+        raise AssertionError("large path: black image or no valid photons")
+    frame_s = statistics.median(times)
+    busy_s, by_kernel, table = profiled(lambda: photon.render_photon(
+        scene, cam, cfg, prng.PRNGKey(9, dev)))
+    if profile_path:
+        with open(profile_path, "w") as f:
+            f.write(table)
+    kernel_ms = {k: by_kernel.get(name, 0.0) for k, name in (
+        ("k8", "epoch_cull_kernel"), ("k9", "epoch_mt_kernel"),
+        ("k2", "rowspan_kernel"))}
+    emit("large", size=SIZE, triangles=LARGE_TRIS,
+         photon_paths=cfg.photon_paths,
+         slots=cfg.photon_paths * cfg.max_photon_depth, frames=frames,
+         frame_s=times, frame_s_median=frame_s,
+         rays_per_s=SIZE * SIZE * cfg.spp / frame_s,
+         photons_per_s=cfg.photon_paths / frame_s, valid_photons=valid,
+         **overflow, image_mean=float(img.mean()), peak_memory_gb=peak_gb,
+         launches_per_frame={k: v / frames for k, v in counts.items()},
+         profiled_frame=dict(device_busy_s=busy_s,
+                             device_busy_frac=busy_s / frame_s,
+                             kernel_ms=kernel_ms),
+         reference_rel_l1=ref_rel_l1)
+    return counts, frame_s
+
+
+def profiled(fn):
+    """fn() once under torch.profiler → (device busy seconds, device ms by
+    kernel name, the key_averages table)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -746,12 +1105,25 @@ def profile_step(phase: str, fn, wall_s: float, path: str) -> None:
     with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    busy_s = sum(e.device_time_total for e in prof.events()
-                 if e.device_type == DeviceType.CUDA) / 1e6
+    by_kernel = {}  # by the kernel's name without its argument list
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.split("(")[0]
+            by_kernel[name] = by_kernel.get(name, 0.0) + e.device_time_total
+    table = prof.key_averages().table(sort_by="self_device_time_total",
+                                      row_limit=60)
+    return (sum(by_kernel.values()) / 1e6,
+            {k: v / 1e3 for k, v in by_kernel.items()}, table)
+
+
+def profile_step(phase: str, fn, wall_s: float, path: str) -> None:
+    """fn() once under torch.profiler: device time by kernel, written to
+    `path`, and the device's busy share of wall_s, the unprofiled median of
+    the same step (the profiler's own overhead inflates its wall time)."""
+    busy_s, _, table = profiled(fn)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
-        f.write(prof.key_averages().table(sort_by="self_device_time_total",
-                                          row_limit=60))
+        f.write(table)
     emit(phase, device_busy_s=busy_s, wall_s=wall_s,
          device_idle_frac=1.0 - busy_s / wall_s)
 
@@ -761,8 +1133,9 @@ def main() -> None:
     ap.add_argument("--profile", metavar="FILE",
                     help="write per-kernel device-time tables of one frame "
                          "(FILE), one gradient step (FILE.grad), one "
-                         "16-wave preview render (FILE.preview) and one "
-                         "simple frame (FILE.simple)")
+                         "16-wave preview render (FILE.preview), one "
+                         "simple frame (FILE.simple) and one large frame "
+                         "(FILE.large)")
     args = ap.parse_args()
     # the kernels must be built from this checkout's sources, not from a
     # copy of the package installed elsewhere
@@ -817,10 +1190,22 @@ def main() -> None:
             sp_scene, sp_cam, RenderConfig(**SIMPLE), prng.PRNGKey(9, dev)),
             simple_s, args.profile + ".simple")
 
+    # the large-scene path: BASELINE config[4]
+    del scene, sp_scene
+    lscene, lcam = phase_build_large(dev)
+    lcfg = RenderConfig(**LARGE)
+    k8, k9, camera = phase_k8_k9(large_launches(dev, lscene, lcam, lcfg),
+                                 lscene)
+    phase_engine(lscene, camera)
+    del camera
+    phase_large_simple(dev, lscene, lcam)
+    large_counts, _ = phase_large(
+        dev, lscene, lcam, args.profile and args.profile + ".large")
+
     # launches: K1 and K2 over the forward frames of phase main, K3 over
-    # the gradient steps of phase grad, K4 over the 16-wave preview render;
-    # no renderer calls K5 (as in JAX), so its count is phase k5's call of
-    # gather_radius_grid
+    # the gradient steps of phase grad, K4 over the 16-wave preview render,
+    # K8 and K9 over the frames of phase large; no renderer calls K5 (as in
+    # JAX), so its count is phase k5's call of gather_radius_grid
     rows = [("tri_closest", "raytrace_tpu_torch/csrc/tri_intersect.cu",
              "raytrace_tpu/ops/pallas_intersect.py:42", "main",
              launches["k1"], k1),
@@ -837,7 +1222,13 @@ def main() -> None:
             ("grid_gather", "raytrace_tpu_torch/csrc/grid_gather.cu",
              "raytrace_tpu/ops/pallas_gather.py:185",
              "none, as in JAX (gather_radius_grid in phase k5)", k5_launches,
-             k5)]
+             k5),
+            ("epoch_cull", "raytrace_tpu_torch/csrc/epoch_cull.cu",
+             "raytrace_tpu/ops/epoch_intersect.py:70", "large",
+             large_counts["k8"], k8),
+            ("epoch_mt", "raytrace_tpu_torch/csrc/epoch_mt.cu",
+             "raytrace_tpu/ops/epoch_intersect.py:184", "large",
+             large_counts["k9"], k9)]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "path": path, "launches": n, **row}

@@ -15,6 +15,8 @@ import numpy as np
 import torch
 
 from raytrace_tpu_torch.diff.render import SceneParams
+from raytrace_tpu_torch.ops.bvh import FlatBVH
+from raytrace_tpu_torch.ops.cluster_intersect import ClusterSet
 from raytrace_tpu_torch.ops.photon_grid import PhotonMap
 from raytrace_tpu_torch.renderers.common import CameraRecords
 from raytrace_tpu_torch.renderers.photon import ProgressiveState
@@ -26,21 +28,29 @@ def _get(obj, name):
     return obj[name] if isinstance(obj, dict) else getattr(obj, name, None)
 
 
-def _build(cls, obj, device, defaults=None):
-    """cls(**fields) with every numpy field as a tensor on `device`."""
+def _build(cls, obj, device, defaults=None, static=()):
+    """cls(**fields) with every numpy field as a tensor on `device`; the
+    fields named in `static` (sizes, not arrays) are carried as ints."""
     kw = {}
     for f in dataclasses.fields(cls):
         v = _get(obj, f.name)
         if v is None and defaults and f.name in defaults:
             v = defaults[f.name]
-        kw[f.name] = None if v is None else torch.as_tensor(
-            np.array(v), device=device)
+        if f.name in static:
+            kw[f.name] = int(v)
+        else:
+            kw[f.name] = None if v is None else torch.as_tensor(
+                np.array(v), device=device)
     return cls(**kw)
 
 
 def scene_from_numpy(scene, device) -> sc.Scene:
+    """The scene with its BVH (static max_depth, leaf_size) and cluster set
+    (static n_tris) when it has them, so both packages hold the same
+    triangle order."""
     mats = _get(scene, "materials")
     m = np.asarray(_get(mats, "mtype")).shape[0]
+    bvh, clusters = _get(scene, "bvh"), _get(scene, "clusters")
     return sc.Scene(
         tris=_build(sc.Triangles, _get(scene, "tris"), device),
         spheres=_build(sc.Spheres, _get(scene, "spheres"), device),
@@ -49,6 +59,10 @@ def scene_from_numpy(scene, device) -> sc.Scene:
             tex_type=np.zeros(m, np.int32),
             tex_scale=np.ones(m, np.float32))),
         lights=_build(sc.Lights, _get(scene, "lights"), device),
+        bvh=None if bvh is None else _build(
+            FlatBVH, bvh, device, static=("max_depth", "leaf_size")),
+        clusters=None if clusters is None else _build(
+            ClusterSet, clusters, device, static=("n_tris",)),
     )
 
 

@@ -1,11 +1,12 @@
-"""Build and load the port's CUDA C++ kernels (csrc/*.cu) with nvcc.
+"""Build and load the port's native code: the CUDA C++ kernels
+(csrc/*.cu, nvcc) and the host BVH builder (csrc/bvh_builder.cc, g++).
 
 Each source is compiled on first use into a shared library with a plain C
-interface, `-gencode arch=compute_90a,code=sm_90a` (Hopper), and loaded with
-ctypes. Libraries land in `raytrace_tpu_torch/_build/` (git-ignored), named
-by a hash of the source and flags, so an edited source is rebuilt and
-concurrent first uses cannot load a half-written file. Nothing here runs at
-import time.
+interface — the kernels with `-gencode arch=compute_90a,code=sm_90a`
+(Hopper) — and loaded with ctypes. Libraries land in
+`raytrace_tpu_torch/_build/` (git-ignored), named by a hash of the source and
+flags, so an edited source is rebuilt and concurrent first uses cannot load
+a half-written file. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -28,7 +29,11 @@ EXTRA_FLAGS = {"tri_intersect": ("--fmad=false",),
                "rowspan_gather": ("--fmad=false",),
                "rowspan_gather_bwd": ("--fmad=false",),
                "dense_gather": ("--fmad=false",),
-               "grid_gather": ("--fmad=false",)}
+               "grid_gather": ("--fmad=false",),
+               "epoch_cull": ("--fmad=false",),
+               "epoch_mt": ("--fmad=false",)}
+# the host builder: the JAX package's own flags (raytrace_tpu/ops/bvh_native.py)
+HOST_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-march=native"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -46,12 +51,9 @@ def nvcc_path() -> str:
     return path
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless a library of the same source and flags
-    exists → path of the shared library."""
-    src = SRC_DIR / f"{name}.cu"
-    flags = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
-                          "-fPIC", *EXTRA_FLAGS.get(name, ())]
+def _compile(name: str, src: Path, compiler: list, flags: list) -> Path:
+    """Compile `src` with `compiler` + `flags` unless a library of the same
+    source and flags exists → path of the shared library."""
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(flags).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"lib{name}_{digest}.so"
@@ -61,15 +63,32 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc_path(), *flags, "-o", tmp, str(src)],
+        proc = subprocess.run([*compiler, *flags, "-o", tmp, str(src)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+            raise RuntimeError(f"{compiler[0]} failed on {src}:\n"
+                               f"{proc.stderr}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def build(name: str) -> Path:
+    """Compile the kernel csrc/<name>.cu with nvcc (if needed) → path of
+    the shared library."""
+    flags = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
+                          "-fPIC", *EXTRA_FLAGS.get(name, ())]
+    return _compile(name, SRC_DIR / f"{name}.cu", [nvcc_path()], flags)
+
+
+def build_host(name: str) -> Path:
+    """Compile the host source csrc/<name>.cc with $CXX (default g++), if
+    needed → path of the shared library. Raises FileNotFoundError without
+    the compiler, RuntimeError when it fails."""
+    return _compile(name, SRC_DIR / f"{name}.cc",
+                    [os.environ.get("CXX", "g++")], HOST_FLAGS)
 
 
 def load(name: str, signatures: dict):

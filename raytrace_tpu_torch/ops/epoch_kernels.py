@@ -1,0 +1,200 @@
+"""The epoch engine's two kernels and their plain versions (port of
+`_cull_kernel`/`_cull_bits` and `_mt_kernel`/`_mt_rounds` of
+raytrace_tpu/ops/epoch_intersect.py).
+
+  K8 `cull_bits`  epoch-windowed slab cull of 256-ray tiles against the
+                  cluster boxes → uint8 [C, n_tiles], bit k: subtile k
+                  (csrc/epoch_cull.cu)
+  K9 `mt_jobs`    Möller–Trumbore of 32-ray subtiles against one cluster's
+                  triangles per job → per-job (t, idx) [J, 32]
+                  (csrc/epoch_mt.cu)
+
+On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
+it runs the plain PyTorch version beside it, the same arithmetic in the
+same order. Each wrapper counts its launches in `.launches`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from raytrace_tpu_torch.ops import cuda_lib
+
+BIG = 1e30
+TILE = 256  # cull-tile rays
+SUB = 32  # subtile rays: one warp, one bit of the mask
+NSUB = TILE // SUB
+_ELEMS_PER_STEP = 1 << 24  # plain versions: tests per block of work
+
+
+# ---------------------------------------------------------------------------
+# K8: the cull
+# ---------------------------------------------------------------------------
+
+def _cull_hits(o, inv, tmin, tbest, w0, w1, cmin, cmax):
+    """Rays [R] against boxes [C] → hit [R, C] bool (JAX `_cull_kernel_body`
+    :101-120, minimum/maximum propagating NaN)."""
+    r = lambda a: a[:, None]
+    c = lambda a: a[None, :]
+
+    def axis_slab(k):
+        t0 = (c(cmin[:, k]) - r(o[:, k])) * r(inv[:, k])
+        t1 = (c(cmax[:, k]) - r(o[:, k])) * r(inv[:, k])
+        return torch.minimum(t0, t1), torch.maximum(t0, t1)
+
+    n0, f0 = axis_slab(0)
+    n1, f1 = axis_slab(1)
+    n2, f2 = axis_slab(2)
+    tn = torch.maximum(torch.maximum(n0, n1), n2)
+    tf = torch.minimum(torch.minimum(f0, f1), f2)
+    tnc = torch.maximum(tn, r(tmin))
+    return ((tn <= tf) & (tf > r(tmin)) & (tnc >= r(w0)) & (tnc < r(w1))
+            & (tnc < r(tbest)))
+
+
+def cull_bits_plain(o, inv, tmin, tbest, w0, w1, cmin, cmax, n_live):
+    """Plain PyTorch version of K8, the same arguments → uint8 [C,
+    n_tiles]."""
+    n_tiles = o.shape[0] // TILE
+    n_clusters = cmin.shape[0]
+    out = torch.zeros((n_clusters, n_tiles), dtype=torch.uint8,
+                      device=o.device)
+    step = max(1, _ELEMS_PER_STEP // (TILE * max(n_clusters, 1)))
+    weight = (1 << torch.arange(NSUB, device=o.device)).to(torch.uint8)
+    for t0 in range(0, n_tiles, step):
+        t1 = min(n_tiles, t0 + step)
+        rs = slice(t0 * TILE, t1 * TILE)
+        hit = _cull_hits(o[rs], inv[rs], tmin[rs], tbest[rs], w0[rs], w1[rs],
+                         cmin, cmax)
+        sub = hit.reshape(t1 - t0, NSUB, SUB, n_clusters).any(dim=2)
+        bits = (sub.to(torch.uint8) * weight[None, :, None]).sum(
+            dim=1, dtype=torch.uint8)
+        out[:, t0:t1] = bits.T
+    live = torch.arange(n_tiles, device=o.device) * TILE < n_live
+    return torch.where(live[None, :], out, 0).to(torch.uint8)
+
+
+_CULL_SIGNATURES = {"epoch_cull": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+                    + [ctypes.c_void_p] * 2}
+
+
+def cull_bits(o, inv, tmin, tbest, w0, w1, cmin, cmax, n_live):
+    """Kernel K8. Rays in tile order: o, inv [N, 3] (inv = 1/d, 1e-30 where
+    d is 0), tmin, tbest, w0, w1 [N] (N a multiple of 256); cluster boxes
+    cmin, cmax [C, 3]; n_live int32 [1], the live-prefix ray count (tiles
+    past it give zeros untested) → uint8 [C, N/256], bit k of (c, tile) set
+    when a ray of subtile k enters box c at a distance in [w0, w1), below
+    tbest, past tmin.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if o.device.type == "cpu":
+        return cull_bits_plain(o, inv, tmin, tbest, w0, w1, cmin, cmax,
+                               n_live)
+    n, n_clusters = o.shape[0], cmin.shape[0]
+    if n % TILE:
+        raise ValueError(f"cull_bits: {n} rays, not a multiple of {TILE}")
+    f32 = torch.float32
+    cuda_lib.check_inputs("cull_bits", o.device, [
+        (o, f32, (n, 3)), (inv, f32, (n, 3)), (tmin, f32, (n,)),
+        (tbest, f32, (n,)), (w0, f32, (n,)), (w1, f32, (n,)),
+        (cmin, f32, (n_clusters, 3)), (cmax, f32, (n_clusters, 3)),
+        (n_live, torch.int32, (1,))])
+    lib = cuda_lib.load("epoch_cull", _CULL_SIGNATURES)
+    out = torch.empty((n_clusters, n // TILE), dtype=torch.uint8,
+                      device=o.device)
+    p = cuda_lib.ptr
+    err = lib.epoch_cull(p(o), p(inv), p(tmin), p(tbest), p(w0), p(w1),
+                         p(cmin), p(cmax), p(n_live), n_clusters, n // TILE,
+                         p(out), cuda_lib.stream_ptr(o.device))
+    cuda_lib.check(err, "epoch_cull")
+    cull_bits.launches += 1
+    return out
+
+
+cull_bits.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K9: the per-job intersection
+# ---------------------------------------------------------------------------
+
+def mt_jobs_plain(job_cluster, job_subtile, o, d, tmin, tmax, tv):
+    """Plain PyTorch version of K9, the same arguments → (t [J, 32],
+    idx [J, 32] int32)."""
+    n_jobs, s = job_cluster.shape[0], tv.shape[2]
+    t_out = torch.empty((n_jobs, SUB), dtype=torch.float32, device=o.device)
+    i_out = torch.empty((n_jobs, SUB), dtype=torch.int32, device=o.device)
+    lanes = torch.arange(SUB, device=o.device)
+    step = max(1, _ELEMS_PER_STEP // (SUB * s))
+    for j0 in range(0, n_jobs, step):
+        js = slice(j0, j0 + step)
+        cl = job_cluster[js].long()
+        ray = job_subtile[js].long()[:, None] * SUB + lanes  # [Jc, 32]
+        r = lambda a: a[ray][..., None]  # [Jc, 32, 1]
+        tri = tv[cl]  # [Jc, 9, S]
+        v = [tri[:, k, None, :] for k in range(9)]  # each [Jc, 1, S]
+        v0x, v0y, v0z = v[0], v[1], v[2]
+        e1x, e1y, e1z = v[3] - v0x, v[4] - v0y, v[5] - v0z
+        e2x, e2y, e2z = v[6] - v0x, v[7] - v0y, v[8] - v0z
+        ox, oy, oz = r(o[:, 0]), r(o[:, 1]), r(o[:, 2])
+        dx, dy, dz = r(d[:, 0]), r(d[:, 1]), r(d[:, 2])
+        px = dy * e2z - dz * e2y
+        py = dz * e2x - dx * e2z
+        pz = dx * e2y - dy * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        inv_det = torch.where(det != 0.0,
+                              1.0 / torch.where(det == 0.0, 1.0, det), 0.0)
+        tvx, tvy, tvz = ox - v0x, oy - v0y, oz - v0z
+        beta = (tvx * px + tvy * py + tvz * pz) * inv_det
+        qx = tvy * e1z - tvz * e1y
+        qy = tvz * e1x - tvx * e1z
+        qz = tvx * e1y - tvy * e1x
+        gamma = (dx * qx + dy * qy + dz * qz) * inv_det
+        t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+        ok = ((det != 0.0) & (beta >= 0.0) & (gamma >= 0.0)
+              & (beta + gamma <= 1.0) & (t > r(tmin)) & (t < r(tmax)))
+        t = torch.where(ok, t, BIG)
+        j = torch.argmin(t, dim=2)  # first triangle at the minimum
+        t_out[js] = torch.gather(t, 2, j[..., None])[..., 0]
+        i_out[js] = (cl[:, None] * s + j).to(torch.int32)
+    return t_out, i_out
+
+
+_MT_SIGNATURES = {"epoch_mt": [ctypes.c_void_p] * 2 + [ctypes.c_int]
+                  + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                  + [ctypes.c_void_p] * 3}
+
+
+def mt_jobs(job_cluster, job_subtile, o, d, tmin, tmax, tv):
+    """Kernel K9. Jobs job_cluster, job_subtile int32 [J]; rays in tile
+    order o, d [N, 3], tmin, tmax [N]; cluster triangles tv [C, 9, S] → per
+    job and lane (ray subtile·32 + lane) the closest t within (tmin, tmax)
+    over the cluster's triangles and its index cluster·S + k, the first k
+    at that t; (1e30, cluster·S) without a hit.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if o.device.type == "cpu":
+        return mt_jobs_plain(job_cluster, job_subtile, o, d, tmin, tmax, tv)
+    n_jobs, n = job_cluster.shape[0], o.shape[0]
+    f32, i32 = torch.float32, torch.int32
+    cuda_lib.check_inputs("mt_jobs", o.device, [
+        (job_cluster, i32, (n_jobs,)), (job_subtile, i32, (n_jobs,)),
+        (o, f32, (n, 3)), (d, f32, (n, 3)), (tmin, f32, (n,)),
+        (tmax, f32, (n,)), (tv, f32, None)])
+    if tv.dim() != 3 or tv.shape[1] != 9:
+        raise ValueError(f"mt_jobs: tv must be [C, 9, S], got "
+                         f"{tuple(tv.shape)}")
+    lib = cuda_lib.load("epoch_mt", _MT_SIGNATURES)
+    t_out = torch.empty((n_jobs, SUB), dtype=f32, device=o.device)
+    i_out = torch.empty((n_jobs, SUB), dtype=i32, device=o.device)
+    p = cuda_lib.ptr
+    err = lib.epoch_mt(p(job_cluster), p(job_subtile), n_jobs, p(o), p(d),
+                       p(tmin), p(tmax), p(tv), tv.shape[2], p(t_out),
+                       p(i_out), cuda_lib.stream_ptr(o.device))
+    cuda_lib.check(err, "epoch_mt")
+    mt_jobs.launches += 1
+    return t_out, i_out
+
+
+mt_jobs.launches = 0

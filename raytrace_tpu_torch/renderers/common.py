@@ -74,9 +74,9 @@ def compact_queue_size(config: RenderConfig, n: int) -> int:
 # config fields that select code paths the port does not have yet → where
 # they come in (ROADMAP Queue A items; the hash-grid gather is not ported)
 _UNPORTED = {
-    "use_bvh": "BVH/cluster/epoch intersection, Queue A item 12",
-    "intersect_rounds": "BVH/cluster/epoch intersection, Queue A item 12",
-    "intersect_budget_scale": "BVH/cluster/epoch intersection, Queue A item 12",
+    "intersect_rounds": "the cluster engine's pair capacity; Queue A item 12 "
+                        "ported the epoch engine only, the cluster engine "
+                        "is ROADMAP Queue B",
     "grid_max_photons_per_cell": "the budgeted hash-grid gather, which the "
                                  "port replaces by the exact row-span gather",
 }
@@ -118,30 +118,34 @@ def replay(value: Tensor, n_prod: Tensor) -> Tensor:
 
 
 def camera_pass(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
-                rays=None) -> CameraRecords:
+                rays=None, return_aux: bool = False):
     """Trace camera rays, following specular chains up to the cap
     (reference: raytracing.cu:87-128). rays: the RayDifferentials of the
     first segment; when given, the pixel footprint is recorded at the
     first hit. With config.differentiable, atten carries the gradient of
-    its mirror (kd) factors by record and replay."""
+    its mirror (kd) factors by record and replay. With return_aux, also
+    {'pair_overflow': ...} summed over the chain's launches."""
     require_forward(config, "camera_pass")
     if not config.differentiable:
-        return _camera_walk(scene, o, d, config, rays, record=False)[0]
-    with torch.no_grad():
-        rec, chain = _camera_walk(
-            scene, o, d, dataclasses.replace(config, differentiable=False),
-            rays, record=True)
-    n_prod = chain_product(scene.materials.kd, chain,
-                           torch.ones_like(rec.atten))
-    return dataclasses.replace(rec, atten=replay(rec.atten, n_prod))
+        rec, _, ovf = _camera_walk(scene, o, d, config, rays, record=False)
+    else:
+        with torch.no_grad():
+            rec, chain, ovf = _camera_walk(
+                scene, o, d, dataclasses.replace(config,
+                                                 differentiable=False),
+                rays, record=True)
+        n_prod = chain_product(scene.materials.kd, chain,
+                               torch.ones_like(rec.atten))
+        rec = dataclasses.replace(rec, atten=replay(rec.atten, n_prod))
+    return (rec, dict(pair_overflow=ovf)) if return_aux else rec
 
 
 def _camera_walk(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
                  rays, record: bool):
-    """The camera pass → (records, chain): with `record`, chain [N,
-    max_specular_depth + 1] holds at column b the material of bounce b where
-    that bounce's throughput is its kd row (mirror; glass throughput is
-    ones, mat_ops.kd_in_specular), else −1; None without."""
+    """The camera pass → (records, chain, pair_overflow): with `record`,
+    chain [N, max_specular_depth + 1] holds at column b the material of
+    bounce b where that bounce's throughput is its kd row (mirror; glass
+    throughput is ones, mat_ops.kd_in_specular), else −1; None without."""
     n = o.shape[0]
     dev = o.device
     compact = compact_queue_size(config, n) > 0
@@ -164,6 +168,7 @@ def _camera_walk(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
     all_lanes = torch.arange(n, device=dev)
     chain = (torch.full((n, config.max_specular_depth + 1), -1,
                         dtype=torch.int32, device=dev) if record else None)
+    ovf = 0
 
     for depth in range(config.max_specular_depth + 1):
         if depth > 0 and not bool(active.any()):
@@ -174,7 +179,9 @@ def _camera_walk(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
         ol, dl = o[lanes], d[lanes]
         hit = isect_ops.intersect(
             scene, ol, dl, torch.full((lanes.shape[0],), eps, device=dev),
-            torch.where(act, BIG, 0.0))
+            torch.where(act, BIG, 0.0), coherent=True,
+            budget_scale=config.intersect_budget_scale)
+        ovf = ovf + hit.pair_overflow
         spec = mat_ops.is_specular(scene.materials, hit.mat)
         spec_hit = act & hit.valid & spec
         diff_hit = act & hit.valid & ~spec
@@ -214,7 +221,7 @@ def _camera_walk(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
 
     # rays still active past the cap → exception flag (raytracing.cu:98-101)
     rec["status"] = torch.where(active, 2, rec["status"])
-    return CameraRecords(atten=atten, footprint=footprint, **rec), chain
+    return CameraRecords(atten=atten, footprint=footprint, **rec), chain, ovf
 
 
 def static_light_samples(scene: Scene, config: RenderConfig):
@@ -226,12 +233,14 @@ def static_light_samples(scene: Scene, config: RenderConfig):
 def direct_lighting(scene: Scene, rec: CameraRecords, key: Tensor,
                     config: RenderConfig, light_samples: tuple[int, ...],
                     include_emitted: bool = True,
-                    sample_ids: Tensor | None = None) -> Tensor:
+                    sample_ids: Tensor | None = None,
+                    return_aux: bool = False):
     """Direct lighting with shadow rays at the recorded hit points
     (reference: raytracing.cu:49-84): L = lightL + Σ_lights Σ_s
     |n_s·wi|·f·li / (pdf·nSamples), shadow rays over [eps, 1-eps] of the
     unnormalized uwi. Light-sample uniforms are threefry(key, request,
-    global sample id), as in the JAX package."""
+    global sample id), as in the JAX package. With return_aux, also
+    {'pair_overflow': ...} summed over the shadow launches."""
     n = rec.p.shape[0]
     dev = rec.p.device
     hit = rec.hit
@@ -247,11 +256,15 @@ def direct_lighting(scene: Scene, rec: CameraRecords, key: Tensor,
     eps = config.shadow_epsilon
     tmin = torch.full((n,), eps, dtype=torch.float32, device=dev)
     tmax = torch.full((n,), 1.0 - eps, dtype=torch.float32, device=dev)
+    ovf = 0
     for i, ns_i in enumerate(light_samples):
         for s in range(ns_i):
             li, uwi, pdf = light_ops.sample_L_illum(
                 scene.lights, i, rec.p, u2d[:, offsets[i] + s])
-            shadowed = isect_ops.occluded(scene, rec.p, uwi, tmin, tmax)
+            shadowed, ovf_s = isect_ops.occluded_aux(
+                scene, rec.p, uwi, tmin, tmax, coherent=True,
+                budget_scale=config.intersect_budget_scale)
+            ovf = ovf + ovf_s
             wi = vec.normalize(uwi)
             fr = mat_ops.f(scene.materials, rec.mat, wo, wi, uv=rec.uv)
             cos = vec.absdot(rec.ns, wi)
@@ -260,4 +273,5 @@ def direct_lighting(scene: Scene, rec: CameraRecords, key: Tensor,
             contrib = cos[:, None] * fr * li * (
                 (1.0 / ns_i) / torch.where(pdf == 0.0, 1.0, pdf))[:, None]
             L = L + torch.where(good[:, None], contrib, 0.0)
-    return torch.where(hit[:, None], L, 0.0)
+    L = torch.where(hit[:, None], L, 0.0)
+    return (L, dict(pair_overflow=ovf)) if return_aux else L

@@ -3,21 +3,25 @@
 Shapes, materials and lights accumulate in numpy lists exactly as in the JAX
 builder, and `build(device)` emits the SoA Scene of torch tensors on the
 given device — the JAX builder's numpy staging is unchanged, only its final
-`jnp.asarray` calls became `torch.as_tensor`. The BVH/cluster structures of
-large scenes are not ported yet (ROADMAP Queue A item 12): `build` raises
-NotImplementedError where the JAX builder would make them.
+`jnp.asarray` calls became `torch.as_tensor`. Scenes of ≥ 512 triangles
+get the JAX builder's BVH (binned SAH, ops/bvh.py) and cluster set
+(ops/cluster_intersect.py), with every triangle array in the BVH's order.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
+from raytrace_tpu_torch.ops import bvh as bvh_ops
+from raytrace_tpu_torch.ops import cluster_intersect as ci
 from raytrace_tpu_torch.scene import transform as tr
+from raytrace_tpu_torch.utils import metrics
 from raytrace_tpu_torch.scene.scene import (
     GLASS,
     LIGHT_AREA_DISK,
@@ -274,13 +278,17 @@ class SceneBuilder:
         self,
         device,
         use_bvh: Optional[bool] = None,
+        bvh_leaf_size: int = 4,
         bvh_threshold: int = 512,
     ) -> Scene:
         """Emit the static SoA Scene with every tensor on `device`.
 
-        Scenes of ≥ bvh_threshold triangles (or use_bvh=True) need the BVH
-        and cluster structures of the JAX builder, which the port does not
-        have yet."""
+        use_bvh: True/False forces the triangle BVH and cluster set on/off;
+        None (default) makes them once the scene holds ≥ bvh_threshold
+        triangles. The triangle arrays are then reordered by the BVH's
+        permutation, and clusters hold 512 triangles from 2^21 triangles
+        on, 256 below. The host times of the three steps go to the
+        `raytrace_tpu_torch` logger as one `scene_build` line."""
         t = lambda a: torch.as_tensor(a, device=device)
         materials = Materials(
             mtype=t(np.asarray(self._mat_type or [0], np.int32)),
@@ -290,17 +298,41 @@ class SceneBuilder:
             tex_scale=t(np.asarray(self._mat_tex_scale or [1.0], _F32)),
         )
         tris_np = self._build_tris_np()
+        bvh_tree = None
+        cluster_set = None
         n_tris = int(tris_np["v0"].shape[0])
         if use_bvh or (use_bvh is None and n_tris >= bvh_threshold):
-            raise NotImplementedError(
-                f"{n_tris} triangles need the BVH/cluster intersectors, which "
-                "are not ported yet (ROADMAP Queue A item 12)")
+            t0 = time.perf_counter()
+            arrays, perm = bvh_ops.build_bvh_native(
+                tris_np["v0"], tris_np["v1"], tris_np["v2"],
+                leaf_size=bvh_leaf_size)
+            tris_np = {k: v[perm] for k, v in tris_np.items()}
+            t1 = time.perf_counter()
+            # clusters share the BVH-leaf order; big scenes keep coarser
+            # clusters, since the cull is O(rays × clusters)
+            cluster_set = ci.build_clusters(
+                tris_np["v0"], tris_np["v1"], tris_np["v2"], device,
+                cluster_size=512 if n_tris >= (1 << 21) else 256)
+            t2 = time.perf_counter()
+            bvh_tree = bvh_ops.bvh_from_arrays(arrays, device)
+            tris = Triangles(**{k: t(v) for k, v in tris_np.items()})
+            if tris.v0.is_cuda:
+                torch.cuda.synchronize(tris.v0.device)
+            metrics.log_pass(
+                "scene_build", triangles=n_tris,
+                nodes=int(bvh_tree.packed.shape[0]),
+                clusters=cluster_set.n_clusters, bvh_s=t1 - t0,
+                clusters_s=t2 - t1, upload_s=time.perf_counter() - t2)
+        else:
+            tris = Triangles(**{k: t(v) for k, v in tris_np.items()})
         return Scene(
-            tris=Triangles(**{k: t(v) for k, v in tris_np.items()}),
+            tris=tris,
             spheres=self._build_spheres(device),
             disks=self._build_disks(device),
             materials=materials,
             lights=self._build_lights(self._world_bounds_np(tris_np), device),
+            bvh=bvh_tree,
+            clusters=cluster_set,
         )
 
     def _build_tris_np(self) -> dict:

@@ -1,6 +1,6 @@
 """Built-in scenes mirroring the BASELINE configs (port of
-raytrace_tpu/scene/presets.py: `sphere_plane` and `cornell_box`; the
-many-triangle `triangle_field` waits for the BVH port)."""
+raytrace_tpu/scene/presets.py): `sphere_plane`, `cornell_box` and the
+many-triangle `triangle_field`."""
 from __future__ import annotations
 
 import numpy as np
@@ -72,3 +72,33 @@ def cornell_box(
     c2w = tr.look_at((0.0, -2.4, 1.0), (0.0, 1.0, 1.0), (0.0, 0.0, 1.0))
     cam = PerspectiveCamera.make(c2w, 60.0, size, size, device=device)
     return b.build(device), cam
+
+
+def triangle_field(device, n_triangles: int = 1 << 20, size: int = 512,
+                   seed: int = 0):
+    """Synthetic many-triangle stress scene (BASELINE config[4] scale test):
+    a jittered triangle terrain grid under a point light, every triangle
+    visible. The same seed gives the JAX preset's vertices."""
+    rng = np.random.default_rng(seed)
+    g = int(np.ceil(np.sqrt(n_triangles / 2)))
+    xs = np.linspace(-10, 10, g + 1)
+    ys = np.linspace(-10, 10, g + 1)
+    gx, gy = np.meshgrid(xs, ys, indexing="ij")
+    gz = 0.6 * np.sin(gx * 0.9) * np.cos(gy * 0.9) + 0.08 * rng.standard_normal(
+        gx.shape)
+    verts = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3)
+    vid = np.arange((g + 1) * (g + 1)).reshape(g + 1, g + 1)
+    a = vid[:-1, :-1].ravel()
+    b_ = vid[1:, :-1].ravel()
+    c = vid[1:, 1:].ravel()
+    d = vid[:-1, 1:].ravel()
+    idx = np.concatenate(
+        [np.stack([a, b_, c], -1), np.stack([a, c, d], -1)])[:n_triangles]
+
+    sb = SceneBuilder()
+    m = sb.matte((0.55, 0.55, 0.6))
+    sb.triangle_mesh(verts, idx, material=m)
+    sb.point_light((0.0, 0.0, 14.0), (500.0, 500.0, 500.0))
+    c2w = tr.look_at((0.0, -14.0, 9.0), (0.0, 0.0, 0.0), (0.0, 0.0, 1.0))
+    cam = PerspectiveCamera.make(c2w, 55.0, size, size, device=device)
+    return sb.build(device), cam

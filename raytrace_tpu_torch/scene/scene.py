@@ -8,10 +8,14 @@ tensors instead of flax pytrees.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import torch
 from torch import Tensor
+
+if TYPE_CHECKING:
+    from raytrace_tpu_torch.ops.bvh import FlatBVH
+    from raytrace_tpu_torch.ops.cluster_intersect import ClusterSet
 
 # Material types (reference: util/common.cu.h:61-63)
 MATTE, MIRROR, GLASS = 0, 1, 2
@@ -108,6 +112,11 @@ class Scene:
     disks: Disks
     materials: Materials
     lights: Lights
+    # the flattened BVH over `tris` and the cluster set in the same triangle
+    # order, both made by SceneBuilder.build for scenes of ≥ 512 triangles
+    # (ops/bvh.py, ops/cluster_intersect.py); None otherwise
+    bvh: Optional["FlatBVH"] = None
+    clusters: Optional["ClusterSet"] = None
 
 
 def empty_triangles(device) -> Triangles:

@@ -218,9 +218,7 @@ def test_render_photon_whole_frame():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("use_bvh", True, "Queue A item 12"),
     ("intersect_rounds", 2, "Queue A item 12"),
-    ("intersect_budget_scale", 2.0, "Queue A item 12"),
     ("grid_max_photons_per_cell", 64, "hash-grid gather")])
 def test_unported_config_field_is_refused(field, value, item):
     """A field that selects a path the port does not have raises instead of

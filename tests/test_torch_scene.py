@@ -76,14 +76,6 @@ def test_sphere_plane_and_builder_lights_equal():
         JBuilder())))
 
 
-def test_builder_refuses_bvh_scenes():
-    b = PBuilder()
-    v = np.random.default_rng(0).uniform(size=(3 * 600, 3))
-    b.triangle_mesh(v, np.arange(3 * 600).reshape(-1, 3))
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        b.build("cpu")
-
-
 @pytest.mark.parametrize("spp,jitter", [(1, True), (4, True), (2, False)])
 def test_pixel_samples(spp, jitter):
     jxy, jlens = j_camera.pixel_samples(jax.random.PRNGKey(3), 12, 10, spp,

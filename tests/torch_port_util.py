@@ -28,3 +28,16 @@ def t(x, dtype=None):
 def n(x):
     """torch tensor or JAX array → numpy."""
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def assert_t_close(got, want, share=0.01):
+    """Hit distances of the two packages: XLA's CPU backend contracts
+    a·b + c into fused multiply-adds where PyTorch's CPU kernels round each
+    step, and t = (e2·q)/det cancels, so a few rays differ by more than
+    ulps. t within rtol 1e-6 on all but `share` of the rays, and within
+    2e-5 (the tolerance of the JAX package's own tests) on all."""
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=2e-5)
+    loose = ~np.isclose(got, want, rtol=1e-6, atol=0.0)
+    assert loose.sum() <= share * got.size, (
+        f"{loose.sum()} of {got.size} beyond 1e-6")
