@@ -9,7 +9,7 @@
 
 Phases, one JSON result line each:
   1. device     the card's name and power limit; raises without CUDA
-  2. build      nvcc builds kernels K1-K5, K8 and K9 from
+  2. build      nvcc builds kernels K1-K9 from
                 raytrace_tpu_torch/csrc, and g++ the host BVH builder, one
                 compiler process per source, all at once
   3. k1         K1 (closest hit) against its plain PyTorch version on
@@ -59,13 +59,22 @@ The large-scene path (BASELINE config[4], 4,194,304 triangles):
                 slice of its tiles and jobs; mask bytes, t and idx equal
  18. engine     the epoch engine against the BVH traversal on the camera
                 launch: t within 1e-5, idx differences counted, overflow 0
- 19. large_simple  render_simple at bench.py run_triangle_field's settings
-                (512², 1 spp) on the same scene: a warm-up and 3 frames
- 20. large      render_photon at bench.py run_combined's settings (2^22
+ 19. k6, k7     K6 (tile cull) and K7 (pair Möller–Trumbore) against their
+                plain versions on every call of one run_triangle_field frame
+                (its camera and shadow launches, captured from the cluster
+                engine): K6's mask in full, K7's (t, idx) on the pairs of
+                the first 256 tiles; equal
+ 20. cluster_engine  the cluster engine against the epoch engine on the same
+                two launches: overflow 0, flips and t bounded, idx
+                differences counted, each engine timed per launch
+ 21. large_simple  render_simple at bench.py run_triangle_field's settings
+                (512², 1 spp) on the same scene: a warm-up and 3 frames,
+                every launch coherent, so K6 and K7 and no K8 or K9
+ 22. large      render_photon at bench.py run_combined's settings (2^22
                 paths, 16.8M slots): a 32×32 triangle_field(2048) frame on
-                the card against the CPU's, a warm-up and 2 frames with K8,
-                K9 and K2 launch counts, and one profiled frame (device busy
-                share, K8/K9/K2 device ms)
+                the card against the CPU's, a warm-up and 2 frames with K6,
+                K7, K8, K9 and K2 launch counts, and one profiled frame
+                (device busy share, K6-K9 and K2 device ms)
 Then the kernel table as one JSON line, the card line from nvidia-smi, and
 last {"ok": true, "device": {...}}. Any failed check raises, so the script
 exits non-zero and prints no final line.
@@ -96,6 +105,8 @@ from raytrace_tpu_torch.core.config import RenderConfig
 from raytrace_tpu_torch.diff import optim
 from raytrace_tpu_torch.diff import render as diff
 from raytrace_tpu_torch.ops import bvh as bvh_ops
+from raytrace_tpu_torch.ops import cluster_intersect as ci
+from raytrace_tpu_torch.ops import cluster_kernels as ck
 from raytrace_tpu_torch.ops import cuda_lib
 from raytrace_tpu_torch.ops import dense_gather as dg
 from raytrace_tpu_torch.ops import epoch_intersect as ei
@@ -134,6 +145,10 @@ LARGE_SIMPLE = dict(width=SIZE, height=SIZE, spp=1, scene_epsilon=1e-3)
 # tens of seconds
 EMISSION_CHECK_TILES = 2048
 EMISSION_CHECK_JOBS = 1 << 16
+# K7 is held against its plain version on the pairs of this many tiles of
+# a launch, spread evenly: all of a config[4] launch's ~1e10 tests take
+# the plain version seconds
+K7_CHECK_TILES = 256
 # the epoch engine against the BVH traversal: both exact, the same
 # arithmetic per triangle; t within 1e-5 relative where both hit, at most a
 # 1e-4 share of the rays hit on one side only
@@ -152,9 +167,14 @@ PEAK_BYTES = 3.35e12
 K1_PAIR_OPS = 53
 # K8's ray-box test (csrc/epoch_cull.cu): 6 differences, 6 products, 3 min
 # and 3 max per slab, 2 max and 2 min across the slabs, the clamp to tmin,
-# 5 compares and 4 ands; K9's ray-triangle test is K1's
+# 5 compares and 4 ands; K9's ray-triangle test is K1's. K6's ray-box test
+# (csrc/cluster_cull.cu) is K8's without the clamp and the window: 6
+# differences, 6 products, 6 + 4 min/max, 3 compares, 2 ands; K7's
+# ray-triangle test is K1's
 K8_TEST_OPS = 32
 K9_PAIR_OPS = K1_PAIR_OPS
+K6_TEST_OPS = 27
+K7_PAIR_OPS = K1_PAIR_OPS
 GATHER_TEST_OPS = 10
 GATHER_HIT_OPS = 13
 # K1 runs with --fmad=false, so it rounds like the plain version; allow a
@@ -255,7 +275,8 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     names = ("tri_intersect", "rowspan_gather", "rowspan_gather_bwd",
-             "dense_gather", "grid_gather", "epoch_cull", "epoch_mt")
+             "dense_gather", "grid_gather", "cluster_cull", "cluster_pair",
+             "epoch_cull", "epoch_mt")
     with ThreadPoolExecutor(len(names) + 1) as pool:
         host = pool.submit(timed_host, "bvh_builder")
         secs = dict(zip(names, pool.map(timed, names)))
@@ -825,21 +846,23 @@ def phase_build_large(dev):
 
 @contextlib.contextmanager
 def recording(module, name):
-    """Swap the kernel wrapper module.<name> for one that keeps each call's
-    arguments (the list yielded); its launch count carries over."""
+    """Swap the function module.<name> (a kernel wrapper or an engine) for
+    one that keeps each call's (positional arguments, keyword arguments) in
+    the list yielded; a wrapper's launch count carries over."""
     orig = getattr(module, name)
     calls = []
 
-    def rec(*args):
-        calls.append(args)
-        return orig(*args)
+    def rec(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
 
-    rec.launches = orig.launches
+    rec.launches = getattr(orig, "launches", 0)
     setattr(module, name, rec)
     try:
         yield calls
     finally:
-        orig.launches = rec.launches
+        if hasattr(orig, "launches"):
+            orig.launches = rec.launches
         setattr(module, name, orig)
 
 
@@ -933,12 +956,12 @@ def phase_k8_k9(launches, scene):
             raise AssertionError(f"{label} launch: K8 called "
                                  f"{len(k8_calls)}, K9 {len(k9_calls)} times")
         full = label == "camera"
-        for e, args in enumerate(k8_calls):
+        for e, (args, _) in enumerate(k8_calls):
             row = _k8_case(label, e, args,
                            None if full else EMISSION_CHECK_TILES,
                            10 if full else 3)
             rows.setdefault(("k8", label), row)
-        for e, args in enumerate(k9_calls):
+        for e, (args, _) in enumerate(k9_calls):
             row = _k9_case(label, e, args,
                            None if full else EMISSION_CHECK_JOBS,
                            10 if full else 3)
@@ -975,17 +998,159 @@ def phase_engine(scene, camera):
          pair_overflow=0, engine_s=engine_s, bvh_traverse_s=traverse_s)
 
 
+def _k6_case(label, args, iters):
+    """K6 on one captured call against the plain version, in full →
+    (row, mask with the seed column set)."""
+    o, d, tmin, tmax, cmin, cmax, tile_rays = args
+    got = ck.cull_tiles(*args)
+    want = ck.cull_tiles_plain(*args)
+    torch.cuda.synchronize()
+    bad = int((got != want).sum())
+    if bad:
+        raise AssertionError(f"K6 {label}: {bad} mask bytes differ from the "
+                             "plain version")
+    ms = cuda_ms(lambda: ck.cull_tiles(*args), iters)
+    plain_ms = cuda_ms(lambda: ck.cull_tiles_plain(*args), 1)
+    n_tiles, n_clusters = got.shape
+    tests = o.shape[0] * n_clusters
+    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+               **bound(K6_TEST_OPS * tests,
+                       o.shape[0] * 8 * 4 + n_clusters * 6 * 4
+                       + n_tiles * n_clusters), library_ms=None)
+    got[:, 0] = 1  # the engine's seed pairs
+    emit("k6", launch=label, rays=o.shape[0], tile_rays=tile_rays,
+         tiles=n_tiles, clusters=n_clusters, tests=tests,
+         set_bytes=int((want != 0).sum()), **row)
+    return row, got
+
+
+def _k7_case(label, args, mask, capacity, iters):
+    """K7 on one captured call against the plain version on the pairs of
+    K7_CHECK_TILES tiles spread evenly over the launch (its first tiles
+    can be all sky); n_pairs and overflow from the launch's mask (seeds
+    set) and the engine's capacity."""
+    pair_cluster, begin, end, o, d, tmin, tmax, tv = args
+    t_got, i_got = ck.pair_hits(*args)
+    n_tiles = begin.shape[0]
+    tile_rays = o.shape[0] // n_tiles
+    sel = torch.arange(0, n_tiles, max(1, n_tiles // K7_CHECK_TILES),
+                       device=o.device)[:K7_CHECK_TILES]
+    rays = (sel[:, None] * tile_rays
+            + torch.arange(tile_rays, device=o.device)).reshape(-1)
+    part = (pair_cluster, begin[sel], end[sel], o[rays], d[rays], tmin[rays],
+            tmax[rays], tv)
+    t_want, i_want = ck.pair_hits_plain(*part)
+    torch.cuda.synchronize()
+    if not (torch.equal(t_got[rays], t_want)
+            and torch.equal(i_got[rays], i_want)):
+        bad = int(((t_got[rays] != t_want) | (i_got[rays] != i_want)).sum())
+        raise AssertionError(f"K7 {label}: (t, idx) of {bad} rays differ "
+                             "from the plain version")
+    n_pairs = int(mask.count_nonzero())
+    overflow = max(n_pairs - capacity, 0)
+    if overflow:
+        raise AssertionError(f"K7 {label}: pair overflow {overflow}")
+    ms = cuda_ms(lambda: ck.pair_hits(*args), iters)
+    plain_ms = cuda_ms(lambda: ck.pair_hits_plain(*part), 1)
+    kept = int((end - begin).sum())  # the pairs run: real clusters only
+    s = tv.shape[2]
+    tests = kept * tile_rays * s
+    row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+               **bound(K7_PAIR_OPS * tests,
+                       pair_cluster.shape[0] * 4 + n_tiles * 8
+                       + o.shape[0] * 8 * 4 + tv.numel() * 4
+                       + o.shape[0] * 8), library_ms=None)
+    emit("k7", launch=label, rays=o.shape[0], tiles=n_tiles,
+         clusters=tv.shape[0], kept_pairs=kept, n_pairs=n_pairs,
+         overflow=overflow, pair_tests=tests, triangles_per_pair=s,
+         hits=int((t_got < BIG).sum()), checked_tiles=sel.shape[0],
+         checked_pairs=int((end[sel] - begin[sel]).sum()), **row)
+    return row
+
+
+def phase_k6_k7(dev, scene, cam):
+    """One run_triangle_field frame with every K6, K7 and cluster-engine
+    call captured; each kernel call held against its plain version → (K6
+    row, K7 row, the launches [(label, o, d, tmin, tmax, kwargs)]) for the
+    kernel table: the camera launch's."""
+    cfg = RenderConfig(**LARGE_SIMPLE)
+    with warnings.catch_warnings(record=True) as caught, \
+            recording(ci, "intersect_clusters") as launches, \
+            recording(ck, "cull_tiles") as k6_calls, \
+            recording(ck, "pair_hits") as k7_calls:
+        warnings.simplefilter("always")
+        simple.render_simple(scene, cam, cfg, prng.PRNGKey(0, dev))
+        torch.cuda.synchronize()
+    overflows = [str(w.message) for w in caught
+                 if "overflow" in str(w.message)]
+    labels = ["camera", "shadow"]
+    if overflows or not (len(launches) == len(k6_calls) == len(k7_calls)
+                         == len(labels)):
+        raise AssertionError(f"k6/k7: {len(launches)} launches, "
+                             f"{len(k6_calls)} K6, {len(k7_calls)} K7 "
+                             f"calls; {overflows}")
+    rows = []
+    for label, (args, kw), (k6_args, _), (k7_args, _) in zip(
+            labels, launches, k6_calls, k7_calls):
+        k6, mask = _k6_case(label, k6_args, 10)
+        capacity = kw.get("pair_budget", 1 << 17) * kw.get("rounds", 1)
+        k7 = _k7_case(label, k7_args, mask, capacity, 3)
+        rows.append((k6, k7))
+        del mask
+    del k6_calls, k7_calls
+    return rows[0][0], rows[0][1], [(label,) + tuple(args[1:5]) + (kw,)
+                                    for label, (args, kw) in zip(labels,
+                                                                 launches)]
+
+
+def phase_cluster_engine(scene, launches):
+    """The cluster engine against the epoch engine on the captured camera
+    and shadow launches, each engine timed per launch (CUDA events around
+    the whole engine call, host syncs included)."""
+    for label, o, d, tmin, tmax, kw in launches:
+        t_c, i_c, n_pairs, ovf_c = ci.intersect_clusters(
+            scene.clusters, o, d, tmin, tmax, **kw)
+        t_e, i_e, n_sp, ovf_e = ei.intersect_epochs(scene.clusters, o, d,
+                                                    tmin, tmax)
+        torch.cuda.synchronize()
+        hit_c, hit_e = t_c < BIG, t_e < BIG
+        flips = int((hit_c != hit_e).sum())
+        both = hit_c & hit_e
+        rel = float(((t_c - t_e).abs() / t_e.abs().clamp(min=1e-30))[both]
+                    .max()) if bool(both.any()) else 0.0
+        idx_differ = int((both & (i_c != i_e) & (t_c == t_e)).sum())
+        if (int(ovf_c) or int(ovf_e) or flips > ENGINE_FLIP_FRAC * o.shape[0]
+                or rel > ENGINE_RTOL):
+            raise AssertionError(
+                f"cluster_engine {label}: overflow {int(ovf_c)} / "
+                f"{int(ovf_e)}, {flips} flips, t off by {rel} relative")
+        cluster_ms = cuda_ms(lambda: ci.intersect_clusters(
+            scene.clusters, o, d, tmin, tmax, **kw), 3)
+        epoch_ms = cuda_ms(lambda: ei.intersect_epochs(
+            scene.clusters, o, d, tmin, tmax), 3)
+        emit("cluster_engine", launch=label, rays=o.shape[0],
+             rounds=kw["rounds"], hits=int(hit_c.sum()), flips=flips,
+             max_t_rel_err=rel, idx_differ_at_equal_t=idx_differ,
+             n_pairs=int(n_pairs), epoch_subpairs=int(n_sp),
+             pair_overflow=0, cluster_ms=cluster_ms, epoch_ms=epoch_ms,
+             faster="cluster" if cluster_ms < epoch_ms else "epoch")
+
+
 def _kernel_counts():
-    return {"k8": ek.cull_bits.launches, "k9": ek.mt_jobs.launches,
+    return {"k6": ck.cull_tiles.launches, "k7": ck.pair_hits.launches,
+            "k8": ek.cull_bits.launches, "k9": ek.mt_jobs.launches,
             "k2": rg.rowspan_S.launches}
 
 
 def _reset_kernel_counts():
-    ek.cull_bits.launches = ek.mt_jobs.launches = rg.rowspan_S.launches = 0
+    for fn in (ck.cull_tiles, ck.pair_hits, ek.cull_bits, ek.mt_jobs,
+               rg.rowspan_S):
+        fn.launches = 0
 
 
 def phase_large_simple(dev, scene, cam, frames=3):
-    """render_simple at run_triangle_field's settings on the 4M scene."""
+    """render_simple at run_triangle_field's settings on the 4M scene →
+    launch counts over the timed frames."""
     cfg = RenderConfig(**LARGE_SIMPLE)
     simple.render_simple(scene, cam, cfg, prng.PRNGKey(0, dev))
     torch.cuda.synchronize()
@@ -1004,8 +1169,12 @@ def phase_large_simple(dev, scene, cam, frames=3):
                  if "overflow" in str(w.message)]
     if overflows:
         raise AssertionError(f"large_simple: {overflows}")
-    if min(counts["k8"], counts["k9"]) <= 0:
-        raise AssertionError(f"large_simple skipped a kernel: {counts}")
+    # every launch of the frame is coherent: the cluster engine takes them
+    # all, the epoch engine none
+    if (min(counts["k6"], counts["k7"]) <= 0
+            or max(counts["k8"], counts["k9"]) != 0):
+        raise AssertionError(f"large_simple: launches {counts}, expected K6 "
+                             "and K7 and no K8 or K9")
     if not (bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0):
         raise AssertionError("large_simple: image not finite or black")
     frame_s = statistics.median(times)
@@ -1015,7 +1184,7 @@ def phase_large_simple(dev, scene, cam, frames=3):
          launches_per_frame={k: v / frames for k, v in counts.items()
                              if k != "k2"},
          image_mean=float(img.mean()))
-    return frame_s
+    return counts
 
 
 def phase_large_reference(dev):
@@ -1077,6 +1246,7 @@ def phase_large(dev, scene, cam, profile_path=None, frames=2):
         with open(profile_path, "w") as f:
             f.write(table)
     kernel_ms = {k: by_kernel.get(name, 0.0) for k, name in (
+        ("k6", "cluster_cull_kernel"), ("k7", "cluster_pair_kernel"),
         ("k8", "epoch_cull_kernel"), ("k9", "epoch_mt_kernel"),
         ("k2", "rowspan_kernel"))}
     emit("large", size=SIZE, triangles=LARGE_TRIS,
@@ -1198,14 +1368,18 @@ def main() -> None:
                                  lscene)
     phase_engine(lscene, camera)
     del camera
-    phase_large_simple(dev, lscene, lcam)
+    k6, k7, coherent = phase_k6_k7(dev, lscene, lcam)
+    phase_cluster_engine(lscene, coherent)
+    del coherent
+    simple_counts = phase_large_simple(dev, lscene, lcam)
     large_counts, _ = phase_large(
         dev, lscene, lcam, args.profile and args.profile + ".large")
 
     # launches: K1 and K2 over the forward frames of phase main, K3 over
     # the gradient steps of phase grad, K4 over the 16-wave preview render,
-    # K8 and K9 over the frames of phase large; no renderer calls K5 (as in
-    # JAX), so its count is phase k5's call of gather_radius_grid
+    # K6 and K7 over the frames of phase large_simple, K8 and K9 over the
+    # frames of phase large; no renderer calls K5 (as in JAX), so its count
+    # is phase k5's call of gather_radius_grid
     rows = [("tri_closest", "raytrace_tpu_torch/csrc/tri_intersect.cu",
              "raytrace_tpu/ops/pallas_intersect.py:42", "main",
              launches["k1"], k1),
@@ -1223,6 +1397,12 @@ def main() -> None:
              "raytrace_tpu/ops/pallas_gather.py:185",
              "none, as in JAX (gather_radius_grid in phase k5)", k5_launches,
              k5),
+            ("cluster_cull", "raytrace_tpu_torch/csrc/cluster_cull.cu",
+             "raytrace_tpu/ops/cluster_intersect.py:115", "large_simple",
+             simple_counts["k6"], k6),
+            ("cluster_pair", "raytrace_tpu_torch/csrc/cluster_pair.cu",
+             "raytrace_tpu/ops/cluster_intersect.py:180", "large_simple",
+             simple_counts["k7"], k7),
             ("epoch_cull", "raytrace_tpu_torch/csrc/epoch_cull.cu",
              "raytrace_tpu/ops/epoch_intersect.py:70", "large",
              large_counts["k8"], k8),

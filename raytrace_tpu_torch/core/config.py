@@ -2,7 +2,7 @@
 
 The same frozen dataclass, field for field and default for default; the JAX
 module's comments explain each knob. Fields that select code paths this
-port does not have yet (BVH, the hash-grid gather) are kept so configs move
+port does not have (the hash-grid gather) are kept so configs move
 between the two packages unchanged; the renderers raise NotImplementedError
 where one differs from its default (renderers/common.py `require_forward`).
 `ray_chunk` is read by no renderer of either package, `remat_walks` by no

@@ -9,9 +9,9 @@ triangle arrays are reordered so each leaf covers a contiguous range.
 
 `_traverse` walks the skip links as a masked wavefront: every ray of the
 batch steps together, one node record and one leaf of triangles per step.
-On a scene with a cluster set every launch takes the epoch engine
-(ops/epoch_intersect.py); the traversal serves scenes with a BVH and no
-cluster set, and is the exact oracle the engine is checked against.
+On a scene with a cluster set every launch takes the cluster or the epoch
+engine (ops/intersect.py `_engine`); the traversal serves scenes with a BVH
+and no cluster set, and is the exact oracle the engines are checked against.
 Traversal is bookkeeping under no_grad; the winner is re-intersected with
 differentiable tensor ops (`reintersect_winner`).
 """

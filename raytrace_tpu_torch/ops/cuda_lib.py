@@ -22,14 +22,16 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-# per-source flags: K1's hit tests and the gathers' (K2-K5) radius tests
-# and weights must round every product and sum like their plain PyTorch
-# versions, so nvcc may not contract a*b+c into an FMA there
+# per-source flags: the hit tests (K1, K6-K9) and the gathers' (K2-K5)
+# radius tests and weights must round every product and sum like their
+# plain PyTorch versions, so nvcc may not contract a*b+c into an FMA there
 EXTRA_FLAGS = {"tri_intersect": ("--fmad=false",),
                "rowspan_gather": ("--fmad=false",),
                "rowspan_gather_bwd": ("--fmad=false",),
                "dense_gather": ("--fmad=false",),
                "grid_gather": ("--fmad=false",),
+               "cluster_cull": ("--fmad=false",),
+               "cluster_pair": ("--fmad=false",),
                "epoch_cull": ("--fmad=false",),
                "epoch_mt": ("--fmad=false",)}
 # the host builder: the JAX package's own flags (raytrace_tpu/ops/bvh_native.py)

@@ -36,7 +36,7 @@ import math
 import torch
 
 from raytrace_tpu_torch.ops import epoch_kernels as ek
-from raytrace_tpu_torch.ops.cluster_intersect import ClusterSet
+from raytrace_tpu_torch.ops.cluster_intersect import ClusterSet, floor_cell
 from raytrace_tpu_torch.ops.photon_grid import morton3
 
 BIG = 1e30
@@ -64,12 +64,6 @@ def _budgets(n_rays: int, n_tiles: int, cp: int, scale: float,
     return pb, max(spb, round_size)
 
 
-def _floor_cell(x, hi: int):
-    """floor(x) clipped to [0, hi] as int64 (NaN → 0)."""
-    f = torch.floor(x)
-    return torch.clamp(torch.where(torch.isnan(f), 0.0, f), 0, hi).long()
-
-
 def _sort_key(cmin, cmax, o, d, tmax, tmin):
     """Ray-coherence sort key: the origin's Morton cell (32³ over the
     cluster bounds), then a fine direction Morton cell (16³ over [-1, 1]³);
@@ -77,8 +71,8 @@ def _sort_key(cmin, cmax, o, d, tmax, tmin):
     smin = torch.amin(cmin, dim=0)
     smax = torch.amax(cmax, dim=0)
     ext = torch.clamp(smax - smin, min=1e-6) / 32.0
-    ocell = _floor_cell((o - smin[None, :]) / ext[None, :], 31)
-    dcell = _floor_cell((d + 1.0) * 8.0, 15)
+    ocell = floor_cell((o - smin[None, :]) / ext[None, :], 31)
+    dcell = floor_cell((d + 1.0) * 8.0, 15)
     key = (morton3(ocell) << 12) | morton3(dcell)
     return torch.where(tmax > tmin, key, _KEY_DEAD)
 

@@ -4,8 +4,10 @@ Each shape family is intersected as a dense batched pass; hit attributes
 are computed only for each family's winner, and the families combine with
 the first family winning ties. Triangles take the first route that
 applies, as in JAX (`_closest_triangles`):
-  - a scene with a cluster set (≥ 512 triangles): the epoch engine
-    (ops/epoch_intersect.py, kernels K8 and K9), its winner re-intersected
+  - a scene with a cluster set (≥ 512 triangles): on coherent (camera and
+    shadow) launches the cluster engine (ops/cluster_intersect.py, kernels
+    K6 and K7), on the others the epoch engine (ops/epoch_intersect.py, K8
+    and K9), as JAX's `_engine` routes them; the winner is re-intersected
     with differentiable tensor ops;
   - a scene with a BVH and no cluster set: the skip-link traversal
     (ops/bvh.py);
@@ -14,9 +16,11 @@ Spheres and disks are plain tensor math, unrolled per primitive for ≤ 8
 primitives and batched [N, C] beyond. Closest-hit and any-hit mirror the
 reference's RayTracing and Shadow ray types.
 
-The epoch engine has pair and subpair budgets; what a launch drops past
-them comes back as `pair_overflow`, a device tensor the renderers add up
-and warn on once per frame (0 means the traversal was exact).
+The epoch engine has pair and subpair budgets (`intersect_budget_scale`),
+the cluster engine a pair capacity (`intersect_rounds`); what a launch
+drops past them comes back as `pair_overflow`, a device tensor the
+renderers add up and warn on once per frame (0 means the launch was
+exact).
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from torch import Tensor
 
 from raytrace_tpu_torch.core import vec
 from raytrace_tpu_torch.ops import bvh as bvh_ops
+from raytrace_tpu_torch.ops import cluster_intersect
 from raytrace_tpu_torch.ops import epoch_intersect
 from raytrace_tpu_torch.ops import tri_intersect
 from raytrace_tpu_torch.scene.scene import Scene
@@ -50,7 +55,7 @@ class Intersection:
     uv: Tensor  # [N, 2]
     mat: Tensor  # [N] int32
     light: Tensor  # [N] int32
-    # pairs and subpairs the epoch engine dropped past its budgets in this
+    # pairs and subpairs the engine dropped past its budgets in this
     # launch: a device tensor on cluster scenes, the int 0 on the others
     pair_overflow: Tensor | int = 0
 
@@ -276,29 +281,47 @@ def disk_attributes(scene: Scene, idx, o, d, t):
 # ---------------------------------------------------------------------------
 
 def _engine(coherent: bool) -> str:
-    """Cluster-scene engine (JAX `_engine`). JAX sends coherent camera and
-    shadow launches to its cluster engine (TPU kernels K6, K7), which the
-    port does not have yet: every launch takes the epoch engine, which is
-    exact for any ray mix. RAYTRACE_TPU_ENGINE=epoch is accepted;
-    RAYTRACE_TPU_ENGINE=cluster raises."""
+    """Cluster-scene engine (JAX `_engine`): coherent camera and shadow
+    launches take the cluster engine (ops/cluster_intersect.py, kernels K6
+    and K7), the rest the epoch engine (ops/epoch_intersect.py, K8 and K9),
+    which is exact for any ray mix. JAX measured the cluster engine ~15%
+    faster on coherent launches on a TPU; PERF.md has the card's numbers.
+    RAYTRACE_TPU_ENGINE=epoch|cluster forces either."""
     forced = os.environ.get("RAYTRACE_TPU_ENGINE")
-    if forced and forced not in ("epoch", "cluster"):
-        raise ValueError(f"RAYTRACE_TPU_ENGINE={forced!r}: must be 'epoch' "
-                         "or 'cluster'")
-    if forced == "cluster":
-        raise NotImplementedError(
-            "RAYTRACE_TPU_ENGINE=cluster: the cluster engine (TPU kernels "
-            "K6, K7) is not ported yet (ROADMAP Queue B)")
-    return "epoch"
+    if forced:
+        if forced not in ("epoch", "cluster"):
+            raise ValueError(f"RAYTRACE_TPU_ENGINE={forced!r}: must be "
+                             "'epoch' or 'cluster'")
+        return forced
+    return "cluster" if coherent else "epoch"
+
+
+def _cluster_rounds(scene: Scene, rounds: int) -> int:
+    """The cluster engine's rounds of 2^17 pairs, scaled with the cluster
+    count (JAX `_cluster_rounds`): at least one round per 2,048 clusters."""
+    cp = scene.clusters.cmin.shape[0]
+    return max(rounds, -(-cp // 2048))
+
+
+def _cluster_hits(scene: Scene, o, d, tmin, tmax, coherent: bool,
+                  budget_scale: float, rounds: int):
+    """→ (t, idx, overflow) through the engine `_engine` picks."""
+    if _engine(coherent) == "epoch":
+        t, idx, _, overflow = epoch_intersect.intersect_epochs(
+            scene.clusters, o, d, tmin, tmax, budget_scale=budget_scale)
+    else:
+        t, idx, _, overflow = cluster_intersect.intersect_clusters(
+            scene.clusters, o, d, tmin, tmax,
+            rounds=_cluster_rounds(scene, rounds))
+    return t, idx, overflow
 
 
 def _closest_triangles(scene: Scene, o, d, tmin, tmax, coherent: bool,
-                       budget_scale: float):
+                       budget_scale: float, rounds: int = 1):
     """→ (t, idx, beta, gamma, pair_overflow) through the scene's route."""
     if scene.clusters is not None:
-        _engine(coherent)
-        t, idx, _, overflow = epoch_intersect.intersect_epochs(
-            scene.clusters, o, d, tmin, tmax, budget_scale=budget_scale)
+        t, idx, overflow = _cluster_hits(scene, o, d, tmin, tmax, coherent,
+                                         budget_scale, rounds)
         found = t < torch.clamp(tmax, max=BIG)
         t_diff, beta, gamma = bvh_ops.reintersect_winner(scene.tris, idx, o,
                                                          d, found)
@@ -311,12 +334,11 @@ def _closest_triangles(scene: Scene, o, d, tmin, tmax, coherent: bool,
 
 
 def _occluded_triangles(scene: Scene, o, d, tmin, tmax, coherent: bool,
-                        budget_scale: float):
+                        budget_scale: float, rounds: int = 1):
     """Any triangle hit within (tmin, tmax) → (occluded [N], overflow)."""
     if scene.clusters is not None:
-        _engine(coherent)
-        t, _, _, overflow = epoch_intersect.intersect_epochs(
-            scene.clusters, o, d, tmin, tmax, budget_scale=budget_scale)
+        t, _, overflow = _cluster_hits(scene, o, d, tmin, tmax, coherent,
+                                       budget_scale, rounds)
         return t < torch.clamp(tmax, max=BIG), overflow
     if scene.bvh is not None:
         return bvh_ops.occluded_triangles_bvh(scene.bvh, scene.tris, o, d,
@@ -331,16 +353,18 @@ def _occluded_triangles(scene: Scene, o, d, tmin, tmax, coherent: bool,
 # ---------------------------------------------------------------------------
 
 def intersect(scene: Scene, o, d, tmin, tmax, coherent: bool = False,
-              budget_scale: float = 1.0) -> Intersection:
+              budget_scale: float = 1.0, rounds: int = 1) -> Intersection:
     """Closest hit across all shape families; empty families are skipped.
-    `coherent` marks camera and shadow launches (JAX's engine hint, passed
-    on); `budget_scale` multiplies the epoch engine's budgets."""
+    `coherent` marks camera and shadow launches, which take the cluster
+    engine on a cluster scene (see `_engine`); `budget_scale` multiplies the
+    epoch engine's budgets and `rounds` buys the cluster engine pair
+    capacity."""
     n = o.shape[0]
     ovf = 0
     cands = []  # (t [N], attrs thunk) per non-empty family
     if scene.tris.count:
         t_tri, i_tri, beta, gamma, ovf = _closest_triangles(
-            scene, o, d, tmin, tmax, coherent, budget_scale)
+            scene, o, d, tmin, tmax, coherent, budget_scale, rounds)
         cands.append((t_tri, lambda: triangle_attributes(
             scene, i_tri, beta, gamma, o, d, t_tri)))
     if scene.spheres.count:
@@ -388,14 +412,14 @@ def intersect(scene: Scene, o, d, tmin, tmax, coherent: bool = False,
 
 
 def occluded_aux(scene: Scene, o, d, tmin, tmax, coherent: bool = False,
-                 budget_scale: float = 1.0):
+                 budget_scale: float = 1.0, rounds: int = 1):
     """Any hit within (tmin, tmax) — the shadow ray type (reference:
     raytracing.cu:143-147) → (occluded [N] bool, pair_overflow)."""
     occ = torch.zeros((o.shape[0],), dtype=torch.bool, device=o.device)
     ovf = 0
     if scene.tris.count:
         hit_tri, ovf = _occluded_triangles(scene, o, d, tmin, tmax, coherent,
-                                           budget_scale)
+                                           budget_scale, rounds)
         occ = occ | hit_tri
     if scene.spheres.count:
         occ = occ | (intersect_spheres(scene, o, d, tmin, tmax)[0] < BIG)
@@ -404,9 +428,10 @@ def occluded_aux(scene: Scene, o, d, tmin, tmax, coherent: bool = False,
     return occ, ovf
 
 
-def occluded(scene: Scene, o, d, tmin, tmax, coherent: bool = False) -> Tensor:
+def occluded(scene: Scene, o, d, tmin, tmax, coherent: bool = False,
+             rounds: int = 1) -> Tensor:
     """occluded_aux without the overflow count → occluded [N] bool."""
-    return occluded_aux(scene, o, d, tmin, tmax, coherent)[0]
+    return occluded_aux(scene, o, d, tmin, tmax, coherent, rounds=rounds)[0]
 
 
 def warn_pair_overflow(overflow, what: str) -> None:
@@ -414,6 +439,7 @@ def warn_pair_overflow(overflow, what: str) -> None:
     single device read: call it once per frame, not per launch)."""
     count = int(overflow)
     if count > 0:
-        warnings.warn(f"{what}: epoch engine pair budget overflow by {count} "
-                      "pairs — intersections were dropped; raise "
-                      "intersect_budget_scale", RuntimeWarning)
+        warnings.warn(f"{what}: pair budget overflow by {count} pairs — "
+                      "intersections were dropped; raise "
+                      "intersect_budget_scale (epoch engine) or "
+                      "intersect_rounds (cluster engine)", RuntimeWarning)

@@ -71,12 +71,9 @@ def compact_queue_size(config: RenderConfig, n: int) -> int:
     return 0 if k >= n else k
 
 
-# config fields that select code paths the port does not have yet → where
-# they come in (ROADMAP Queue A items; the hash-grid gather is not ported)
+# config fields that select code paths the port does not have → why (the
+# hash-grid gather is not ported)
 _UNPORTED = {
-    "intersect_rounds": "the cluster engine's pair capacity; Queue A item 12 "
-                        "ported the epoch engine only, the cluster engine "
-                        "is ROADMAP Queue B",
     "grid_max_photons_per_cell": "the budgeted hash-grid gather, which the "
                                  "port replaces by the exact row-span gather",
 }
@@ -180,7 +177,8 @@ def _camera_walk(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
         hit = isect_ops.intersect(
             scene, ol, dl, torch.full((lanes.shape[0],), eps, device=dev),
             torch.where(act, BIG, 0.0), coherent=True,
-            budget_scale=config.intersect_budget_scale)
+            budget_scale=config.intersect_budget_scale,
+            rounds=config.intersect_rounds)
         ovf = ovf + hit.pair_overflow
         spec = mat_ops.is_specular(scene.materials, hit.mat)
         spec_hit = act & hit.valid & spec
@@ -263,7 +261,8 @@ def direct_lighting(scene: Scene, rec: CameraRecords, key: Tensor,
                 scene.lights, i, rec.p, u2d[:, offsets[i] + s])
             shadowed, ovf_s = isect_ops.occluded_aux(
                 scene, rec.p, uwi, tmin, tmax, coherent=True,
-                budget_scale=config.intersect_budget_scale)
+                budget_scale=config.intersect_budget_scale,
+                rounds=config.intersect_rounds)
             ovf = ovf + ovf_s
             wi = vec.normalize(uwi)
             fr = mat_ops.f(scene.materials, rec.mat, wo, wi, uv=rec.uv)

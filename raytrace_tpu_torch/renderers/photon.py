@@ -99,7 +99,8 @@ def _photon_step(scene: Scene, config: RenderConfig, o, d, alpha, n_int,
         scene, o, d,
         torch.full((width,), config.scene_epsilon, device=o.device),
         torch.where(act, BIG, 0.0),
-        budget_scale=config.intersect_budget_scale)
+        budget_scale=config.intersect_budget_scale,
+        rounds=config.intersect_rounds)
     alive = act & hit.valid  # miss → photon dies (photontracing.cu:193)
     spec = mat_ops.is_specular(scene.materials, hit.mat)
     spec_hit = alive & spec

@@ -31,8 +31,8 @@ def render_simple(scene: Scene, camera: PerspectiveCamera,
     lighting at the first diffuse hit weighted by the chain throughput —
     the reference's simple kernel has no specular path (a mirror renders
     black there); following the chain matches the photon renderer's camera
-    pass. A nonzero pair overflow of the epoch engine is warned on once
-    per frame."""
+    pass. A nonzero pair overflow of the intersection engines is warned on
+    once per frame."""
     light_samples = common.static_light_samples(scene, config)
     keys = prng.split(key)
     xy, lens = pixel_samples(keys[0], config.width, config.height,

@@ -295,20 +295,38 @@ def field_scene():
 
 
 def test_engine_choice(field_scene, monkeypatch):
-    """Every launch on a cluster scene takes the epoch engine;
-    RAYTRACE_TPU_ENGINE=cluster raises instead of quietly taking it."""
+    """JAX's routing on a cluster scene: coherent launches take the cluster
+    engine and the rest the epoch engine; RAYTRACE_TPU_ENGINE=epoch|cluster
+    forces either, for closest hit and any hit alike, and another value
+    raises."""
     o = t(np.array([[0.0, -14.0, 9.0]] * 4, np.float32))
     d = t(np.array([[0.0, 0.8, -0.6]] * 4, np.float32))
     lo, hi = t(np.full(4, 1e-3, np.float32)), t(np.full(4, BIG, np.float32))
-    for coherent in (False, True):
-        monkeypatch.setenv("RAYTRACE_TPU_ENGINE", "epoch")
-        hit = p_isect.intersect(field_scene, o, d, lo, hi, coherent=coherent)
-        assert hit.valid.all() and int(hit.pair_overflow) == 0
-        monkeypatch.setenv("RAYTRACE_TPU_ENGINE", "cluster")
-        with pytest.raises(NotImplementedError, match="Queue B"):
-            p_isect.intersect(field_scene, o, d, lo, hi, coherent=coherent)
-        with pytest.raises(NotImplementedError, match="Queue B"):
-            p_isect.occluded_aux(field_scene, o, d, lo, hi, coherent=True)
+    calls = []
+    for mod, fn in ((p_isect.cluster_intersect, "intersect_clusters"),
+                    (p_isect.epoch_intersect, "intersect_epochs")):
+        orig = getattr(mod, fn)
+
+        def spy(*args, _orig=orig, _fn=fn, **kw):
+            calls.append(_fn)
+            return _orig(*args, **kw)
+
+        monkeypatch.setattr(mod, fn, spy)
+    route = {False: "intersect_epochs", True: "intersect_clusters"}
+    for forced in (None, "epoch", "cluster"):
+        if forced:
+            monkeypatch.setenv("RAYTRACE_TPU_ENGINE", forced)
+        for coherent in (False, True):
+            calls.clear()
+            hit = p_isect.intersect(field_scene, o, d, lo, hi,
+                                    coherent=coherent)
+            occ, ovf = p_isect.occluded_aux(field_scene, o, d, lo, hi,
+                                            coherent=coherent)
+            assert hit.valid.all() and occ.all()
+            assert int(hit.pair_overflow) == int(ovf) == 0
+            want = route[coherent] if forced is None else route[
+                forced == "cluster"]
+            assert calls == [want, want]
     monkeypatch.setenv("RAYTRACE_TPU_ENGINE", "tile")
     with pytest.raises(ValueError, match="RAYTRACE_TPU_ENGINE"):
         p_isect.intersect(field_scene, o, d, lo, hi)

@@ -1,8 +1,9 @@
 """The port's large-scene path against the JAX package on a small
 `triangle_field` (2,048 triangles, so both builders attach a BVH and a
-cluster set): the port intersects through its epoch engine (kernels K8 and
-K9 through their plain versions), JAX through its CPU route, the BVH
-traversal, and gathers with exact_gather=True.
+cluster set): the port intersects coherent (camera and shadow) launches
+through its cluster engine (kernels K6 and K7 through their plain versions)
+and the others through its epoch engine (K8 and K9), JAX through its CPU
+route, the BVH traversal, and gathers with exact_gather=True.
 
 Both find the exact closest hit, so they differ only where float32 rounds
 differently: a ray through a shared terrain edge may take either triangle
@@ -32,6 +33,7 @@ from raytrace_tpu_torch import interop
 from raytrace_tpu_torch.core import prng
 from raytrace_tpu_torch.core.config import RenderConfig as PConfig
 from raytrace_tpu_torch.diff import render as p_diff
+from raytrace_tpu_torch.ops import cluster_kernels as ck
 from raytrace_tpu_torch.ops import epoch_kernels as ek
 from raytrace_tpu_torch.ops import intersect as p_isect
 from raytrace_tpu_torch.renderers import photon as p_photon
@@ -93,18 +95,21 @@ def _launches(js, jc):
 
 @pytest.mark.parametrize("launch", ["camera", "bounce"])
 def test_intersect_and_occluded_equal_jax(scenes, launch):
-    """Closest hit and any-hit of the port (epoch engine) against JAX's
-    (BVH traversal): the same hits but for counted flips, t rtol 2e-5 and
-    the winner's material and point on the rest, overflow 0."""
+    """Closest hit and any-hit of the port (coherent launches: the cluster
+    engine) against JAX's (BVH traversal): the same hits but for counted
+    flips, t rtol 2e-5 and the winner's material and point on the rest,
+    overflow 0."""
     js, jc, ps, _ = scenes
     o, d = _launches(js, jc)[launch == "bounce"]
     k = o.shape[0]
     lo, hi = np.full(k, 1e-3, np.float32), np.full(k, BIG, np.float32)
     jh = j_isect.intersect(js, jnp.asarray(o), jnp.asarray(d),
                            jnp.asarray(lo), jnp.asarray(hi))
-    k8, k9 = ek.cull_bits.launches, ek.mt_jobs.launches
+    counts = lambda: (ek.cull_bits.launches, ek.mt_jobs.launches,
+                      ck.cull_tiles.launches, ck.pair_hits.launches)
+    before = counts()
     ph = p_isect.intersect(ps, t(o), t(d), t(lo), t(hi), coherent=True)
-    assert (ek.cull_bits.launches, ek.mt_jobs.launches) == (k8, k9)
+    assert counts() == before
     assert int(ph.pair_overflow) == 0
     jv, pv = n(jh.valid), n(ph.valid)
     jt, pt = n(jh.t), n(ph.t)

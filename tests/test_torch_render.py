@@ -9,6 +9,7 @@ slots and pixels are counted against the bounds stated in each test; the
 rest must be allclose.
 """
 import dataclasses
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -26,8 +27,10 @@ from raytrace_tpu.utils import film as j_film
 from raytrace_tpu_torch import interop
 from raytrace_tpu_torch.core import prng
 from raytrace_tpu_torch.core.config import RenderConfig as PConfig
+from raytrace_tpu_torch.ops import intersect as p_isect_mod
 from raytrace_tpu_torch.renderers import common as p_common
 from raytrace_tpu_torch.renderers import photon as p_photon
+from raytrace_tpu_torch.renderers import simple as p_simple
 from raytrace_tpu_torch.scene import presets as p_presets
 from raytrace_tpu_torch.utils import film as p_film
 
@@ -218,7 +221,6 @@ def test_render_photon_whole_frame():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("intersect_rounds", 2, "Queue A item 12"),
     ("grid_max_photons_per_cell", 64, "hash-grid gather")])
 def test_unported_config_field_is_refused(field, value, item):
     """A field that selects a path the port does not have raises instead of
@@ -243,3 +245,27 @@ def test_film_splat(filt, radius):
     want = j_film.splat(jnp.asarray(xy), jnp.asarray(L), 10, 7, filt, radius)
     got = p_film.splat(t(xy), t(L), 10, 7, filt, radius)
     np.testing.assert_allclose(n(got), n(want), rtol=1e-5, atol=1e-6)
+
+
+def test_intersect_rounds_raises_the_cluster_capacity(monkeypatch):
+    """intersect_rounds is accepted and buys the cluster engine capacity:
+    with a budget of 4 pairs a round, one round drops pairs of the camera
+    and shadow launches (a warning, another frame), and 256 rounds hold
+    every pair a 1,024-ray launch over 128 clusters can have: the frame of
+    the epoch engine, without a warning."""
+    ps, pc = p_presets.triangle_field("cpu", 2048, 8)
+    engine = p_isect_mod.cluster_intersect.intersect_clusters
+    monkeypatch.setattr(p_isect_mod.cluster_intersect, "intersect_clusters",
+                        lambda *a, **kw: engine(*a, pair_budget=4, **kw))
+    base = dict(width=8, height=8, spp=1, scene_epsilon=1e-3)
+    key = prng.PRNGKey(0, "cpu")
+    with pytest.warns(RuntimeWarning, match="intersect_rounds"):
+        short = p_simple.render_simple(ps, pc, PConfig(**base), key)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        full = p_simple.render_simple(
+            ps, pc, PConfig(**base, intersect_rounds=256), key)
+    monkeypatch.setenv("RAYTRACE_TPU_ENGINE", "epoch")
+    want = p_simple.render_simple(ps, pc, PConfig(**base), key)
+    np.testing.assert_allclose(n(full), n(want), rtol=1e-4, atol=1e-6)
+    assert not np.allclose(n(short), n(want), rtol=1e-4, atol=1e-6)
