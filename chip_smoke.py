@@ -54,9 +54,15 @@ The large-scene path (BASELINE config[4], 4,194,304 triangles):
                 the cluster set and the upload; node and cluster counts
  17. k8, k9     K8 (epoch cull) and K9 (subtile Möller–Trumbore) against
                 their plain versions on the frame's own launches, captured
-                from the epoch engine: the camera launch (262,144 rays) in
-                full and the photon emission launch (4,194,304 rays) on a
-                slice of its tiles and jobs; mask bytes, t and idx equal
+                from the epoch engine, a row per epoch: the camera launch
+                (262,144 rays) in full and the photon emission launch
+                (4,194,304 rays) on 2,048 tiles spread over it and on its
+                first 65,536 jobs; mask bytes, t and idx equal; the tests
+                left after K8's exact pre-cull and the warps that skip, the
+                (job, triangle) pairs past K9's gate, and a bound on that
+                work beside the bound on all tests; K9 also on the camera
+                list shifted by one job and shuffled, K8 also on the
+                adversarial inputs of tests/test_torch_epoch_precull.py
  18. engine     the epoch engine against the BVH traversal on the camera
                 launch: t within 1e-5, idx differences counted, overflow 0
  19. k6, k7     K6 (tile cull) and K7 (pair Möller–Trumbore) against their
@@ -84,6 +90,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import importlib.util
 import json
 import logging
 import math
@@ -141,10 +148,12 @@ LARGE = dict(BENCH, photon_paths=1 << 22, initial_radius2=0.04)
 # bench.py run_triangle_field's settings (bench.py:377-390), on that scene
 LARGE_SIMPLE = dict(width=SIZE, height=SIZE, spp=1, scene_epsilon=1e-3)
 # the emission launch's kernels are held against their plain versions on
-# its first tiles (K8) and jobs (K9): the whole takes the plain versions
-# tens of seconds
+# tiles spread over the launch (K8) and on its first jobs (K9): the whole
+# takes the plain versions tens of seconds
 EMISSION_CHECK_TILES = 2048
 EMISSION_CHECK_JOBS = 1 << 16
+# K9 on a shuffled slice of the camera launch's job list
+K9_SHUFFLED_JOBS = 1 << 13
 # K7 is held against its plain version on the pairs of this many tiles of
 # a launch, spread evenly: all of a config[4] launch's ~1e10 tests take
 # the plain version seconds
@@ -173,6 +182,14 @@ K1_PAIR_OPS = 53
 # ray-triangle test is K1's
 K8_TEST_OPS = 32
 K9_PAIR_OPS = K1_PAIR_OPS
+# what K9's function needs of that test: pvec, det, inverse, tvec, beta and
+# the bounds and running best (32) for every test of a job with a live lane;
+# qvec, gamma and t (21) only for a (job, triangle) where a live lane has
+# det != 0 and 0 <= beta <= 1, since a hit needs both
+K9_GATE_OPS = 9 + 5 + 2 + 3 + 6 + 7
+K9_TAIL_OPS = K9_PAIR_OPS - K9_GATE_OPS
+# elements per step of that count, as the plain version steps
+K9_GATE_STEP = 1 << 25
 K6_TEST_OPS = 27
 K7_PAIR_OPS = K1_PAIR_OPS
 GATHER_TEST_OPS = 10
@@ -880,39 +897,108 @@ def large_launches(dev, scene, cam, cfg):
              torch.where(em["alive"], BIG, 0.0))]
 
 
+def spread(n: int, k: int | None, dev) -> torch.Tensor:
+    """k indices spread evenly over range(n) (all n when k is None)."""
+    if k is None or k >= n:
+        return torch.arange(n, device=dev)
+    return torch.arange(k, device=dev) * n // k
+
+
 def _k8_case(label, epoch, args, tiles, iters):
-    """K8 on one captured call against the plain version on its first
-    `tiles` tiles (all of them when None)."""
-    o, inv, tmin, tbest, w0, w1, cmin, cmax, n_live = args
+    """K8 on one captured call against the plain version on `tiles` tiles
+    spread evenly over the launch (all of them when None): the sort can
+    put a photon launch's sky-bound rays, which the pre-cull skips, on
+    whole runs of tiles. Counts the tests left after the exact pre-cull
+    (`precull_plain` on the launch's own inputs: every padding cluster,
+    and every real cluster for the live subtiles with a ray that may hit)
+    and bounds the kernel on them and on all tests of the live tiles."""
+    o, inv, tmin, tbest, w0, w1, cmin, cmax, n_live, box, n_real = args
     got = ek.cull_bits(*args)
     n_tiles = got.shape[1]
-    tiles = n_tiles if tiles is None else min(tiles, n_tiles)
-    part = [a[:tiles * ek.TILE] for a in args[:6]] + [cmin, cmax, n_live]
+    sel = spread(n_tiles, tiles, o.device)
+    rays = (sel[:, None] * ek.TILE
+            + torch.arange(ek.TILE, device=o.device)).reshape(-1)
+    live = int(n_live)
+    # liveness is a prefix, so the live tiles of sel are a prefix of it
+    live_sel = int((sel * ek.TILE < live).sum())
+    part = ([a[rays] for a in args[:6]]
+            + [cmin, cmax, torch.tensor([live_sel * ek.TILE],
+                                        dtype=torch.int32, device=o.device)])
     want = ek.cull_bits_plain(*part)
     torch.cuda.synchronize()
-    bad = int((got[:, :tiles] != want).sum())
+    bad = int((got[:, sel] != want).sum())
     if bad:
         raise AssertionError(f"K8 {label} epoch {epoch}: {bad} mask bytes "
                              "differ from the plain version")
     ms = cuda_ms(lambda: ek.cull_bits(*args), iters)
     plain_ms = cuda_ms(lambda: ek.cull_bits_plain(*part), 1)
     n_clusters = cmin.shape[0]
-    live_tiles = -(-int(n_live) // ek.TILE)
-    tests = live_tiles * ek.TILE * n_clusters
+    live_tiles = -(-live // ek.TILE)
+    live_rays = live_tiles * ek.TILE
+    may = ek.precull_plain(o, inv, tmin, tbest, w0, w1, box)[:live_rays]
+    sub_may = int(may.reshape(-1, ek.SUB).any(1).sum())
+    tests = live_rays * n_clusters
+    precull_tests = ek.SUB * (live_rays // ek.SUB * (n_clusters - n_real)
+                              + sub_may * n_real)
+    warp_skip = ~may.reshape(-1, ek.CULL_WARP_RAYS).any(1)
+    sel_live = sel[:live_sel]
+    warps_per_tile = ek.TILE // ek.CULL_WARP_RAYS
+    checked = (sel_live[:, None] * warps_per_tile
+               + torch.arange(warps_per_tile, device=o.device)).reshape(-1)
+    nbytes = o.shape[0] * 10 * 4 + n_clusters * (6 * 4 + n_tiles) + 4
+    full = bound(K8_TEST_OPS * tests, nbytes)
     row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-               **bound(K8_TEST_OPS * tests,
-                       o.shape[0] * 10 * 4 + n_clusters * (6 * 4 + n_tiles)
-                       + 4), library_ms=None)
+               **bound(K8_TEST_OPS * precull_tests, nbytes),
+               bound_all_tests_ms=full["bound_ms"], library_ms=None)
     emit("k8", launch=label, epoch=epoch, rays=o.shape[0], tiles=n_tiles,
-         live_tiles=live_tiles, clusters=n_clusters, tests=tests,
-         checked_tiles=tiles, set_bytes=int((got != 0).sum()),
-         plain_on_checked_tiles=tiles < n_tiles, **row)
+         live_tiles=live_tiles, clusters=n_clusters, real_clusters=n_real,
+         tests=tests, tests_after_precull=precull_tests,
+         subtiles_may_hit=sub_may, warps=warp_skip.numel(),
+         warps_skipped=int(warp_skip.sum()), checked_tiles=sel.numel(),
+         checked_warps=checked.numel(),
+         checked_warps_skipped=int(warp_skip[checked].sum()),
+         set_bytes=int((got != 0).sum()),
+         plain_on_checked_tiles=sel.numel() < n_tiles, **row)
     return row
 
 
-def _k9_case(label, epoch, args, jobs, iters):
+def _k9_gate_pairs(args) -> int:
+    """(job, triangle) pairs of one K9 call where a live lane (tmin < tmax)
+    has det != 0 and 0 <= beta <= 1: the plain version's first half of the
+    test, its operations in its order, on the call's own inputs."""
+    job_cluster, job_subtile, o, d, tmin, tmax, tv = args
+    n_jobs, s = job_cluster.shape[0], tv.shape[2]
+    lanes = torch.arange(ek.SUB, device=o.device)
+    live = tmin < tmax
+    count = torch.zeros((), dtype=torch.int64, device=o.device)
+    step = max(1, K9_GATE_STEP // (ek.SUB * s))
+    for j0 in range(0, n_jobs, step):
+        cl = job_cluster[j0:j0 + step].long()
+        ray = job_subtile[j0:j0 + step].long()[:, None] * ek.SUB + lanes
+        r = lambda a: a[ray][..., None]  # [Jc, 32, 1]
+        v = [x[:, None, :] for x in tv[cl].unbind(1)]  # each [Jc, 1, S]
+        e1x, e1y, e1z = v[3] - v[0], v[4] - v[1], v[5] - v[2]
+        e2x, e2y, e2z = v[6] - v[0], v[7] - v[1], v[8] - v[2]
+        dx, dy, dz = r(d[:, 0]), r(d[:, 1]), r(d[:, 2])
+        px = dy * e2z - dz * e2y
+        py = dz * e2x - dx * e2z
+        pz = dx * e2y - dy * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        inv_det = torch.where(det != 0.0,
+                              1.0 / torch.where(det == 0.0, 1.0, det), 0.0)
+        beta = (((r(o[:, 0]) - v[0]) * px + (r(o[:, 1]) - v[1]) * py
+                 + (r(o[:, 2]) - v[2]) * pz) * inv_det)
+        gate = (det != 0.0) & (beta >= 0.0) & (beta <= 1.0) & r(live)
+        count += gate.any(1).sum()
+    return int(count)
+
+
+def _k9_case(label, epoch, args, jobs, iters, order="engine"):
     """K9 on one captured call against the plain version on its first
-    `jobs` jobs (all of them when None)."""
+    `jobs` jobs (all of them when None). Bounds the kernel on all tests and
+    on the work its function needs on this call's data: the first half of
+    every test of a job with a live lane, the second half only where a
+    live lane passes the gate (`_k9_gate_pairs`)."""
     job_cluster, job_subtile, o, d, tmin, tmax, tv = args
     t_got, i_got = ek.mt_jobs(*args)
     n_jobs = job_cluster.shape[0]
@@ -923,27 +1009,117 @@ def _k9_case(label, epoch, args, jobs, iters):
     if not (torch.equal(t_got[:jobs], t_want)
             and torch.equal(i_got[:jobs], i_want)):
         bad = int(((t_got[:jobs] != t_want) | (i_got[:jobs] != i_want)).sum())
-        raise AssertionError(f"K9 {label} epoch {epoch}: (t, idx) of {bad} "
-                             "rows differ from the plain version")
+        raise AssertionError(f"K9 {label} epoch {epoch} ({order} jobs): "
+                             f"(t, idx) of {bad} rows differ from the plain "
+                             "version")
     ms = cuda_ms(lambda: ek.mt_jobs(*args), iters)
     plain_ms = cuda_ms(lambda: ek.mt_jobs_plain(*part), 1)
     s = tv.shape[2]
     pairs = n_jobs * ek.SUB * s
+    ray = (job_subtile.long()[:, None] * ek.SUB
+           + torch.arange(ek.SUB, device=o.device))
+    live_jobs = int((tmin[ray] < tmax[ray]).any(1).sum())
+    gate_pairs = _k9_gate_pairs(args)
+    gate_tests, tail_tests = live_jobs * ek.SUB * s, gate_pairs * ek.SUB
+    nbytes = (n_jobs * 8 + o.shape[0] * 8 * 4 + tv.numel() * 4
+              + n_jobs * ek.SUB * 8)
+    full = bound(K9_PAIR_OPS * pairs, nbytes)
     row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-               **bound(K9_PAIR_OPS * pairs,
-                       n_jobs * 8 + o.shape[0] * 8 * 4 + tv.numel() * 4
-                       + n_jobs * ek.SUB * 8), library_ms=None)
-    emit("k9", launch=label, epoch=epoch, jobs=n_jobs, triangles_per_job=s,
-         pair_tests=pairs, hits=int((t_got < BIG).sum()), checked_jobs=jobs,
+               **bound(K9_GATE_OPS * gate_tests + K9_TAIL_OPS * tail_tests,
+                       nbytes),
+               bound_all_tests_ms=full["bound_ms"], library_ms=None)
+    emit("k9", launch=label, epoch=epoch, order=order, jobs=n_jobs,
+         live_jobs=live_jobs, triangles_per_job=s, pair_tests=pairs,
+         gate_tests=gate_tests, gate_pairs=gate_pairs,
+         tail_tests=tail_tests, tail_share=tail_tests / max(gate_tests, 1),
+         hits=int((t_got < BIG).sum()), checked_jobs=jobs,
          plain_on_checked_jobs=jobs < n_jobs, **row)
     return row
 
 
+def _k9_unaligned(args):
+    """K9 on job lists the engine never builds, against the plain version
+    in full: the captured list shifted by one job (every group of four
+    straddles two runs where a cluster's run ends) and a shuffled slice of
+    it (groups name several clusters)."""
+    job_cluster, job_subtile = args[:2]
+    n = job_cluster.shape[0]
+    g = torch.Generator(device=job_cluster.device).manual_seed(7)
+    perm = torch.randperm(n, generator=g, device=job_cluster.device)
+    perm = perm[:K9_SHUFFLED_JOBS]
+    for order, sel in (("shifted", slice(1, None)), ("shuffled", perm)):
+        _k9_case("camera", 0, (job_cluster[sel].contiguous(),
+                               job_subtile[sel].contiguous()) + args[2:],
+                 None, 3, order)
+
+
+def _k8_adversarial(dev):
+    """K8 on the card, with its pre-cull, against the plain version on the
+    CPU, byte for byte, on the inputs tests/test_torch_epoch_precull.py
+    builds: NaN and infinite origins, zero and denormal directions, origins
+    on face planes, grazing rays, epochs 0 and 1, 96 real and 32 padding
+    clusters. The rays are grouped as the pre-cull sees them (dropped, kept
+    only for a NaN in the scene-box test, kept) so that whole warps skip
+    and whole warps stand on the NaN rule alone. Each case runs three ways:
+    all rays live; 83 clusters taken as real (the boundary inside a 32-box
+    word) with a dead tail; and 7 tiles (the unaligned byte stores) with a
+    dead tail. One row per case and way: the warps (128 rays of a live
+    tile) that skip, and those kept by NaN alone that hit a real cluster."""
+    path = Path(__file__).resolve().parent / "tests" / \
+        "test_torch_epoch_precull.py"
+    spec = importlib.util.spec_from_file_location("precull_cases", path)
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    skipped_total = nan_hit_total = 0
+    warp = lambda x: x.reshape(-1, ek.CULL_WARP_RAYS).any(1)
+    for name in cases.CASES:
+        *arrays, n_real = cases._case(name)
+        *rays, cmin, cmax, _ = cases._tensors(*arrays, n_real)
+        n = rays[0].shape[0]
+        for real, n_rays, live in ((n_real, n, n), (83, n, n - 300),
+                                   (n_real, n - ek.TILE, n - ek.TILE - 100)):
+            box = torch.stack([cmin[:real].amin(0), cmax[:real].amax(0)])
+            may = ek.precull_plain(*rays, box)
+            nan = torch.isnan(ek._slab(rays[0], rays[1], box[:1],
+                                       box[1:])[0][:, 0])
+            key = torch.where(may, torch.where(nan, 1, 2), 0)
+            order = torch.argsort(key, stable=True)[:n_rays]
+            host = [a[order] for a in rays] + [cmin, cmax]
+            n_live = torch.tensor([live], dtype=torch.int32)
+            want = ek.cull_bits_plain(*host, n_live)
+            got = ek.cull_bits(*[a.to(dev) for a in host], n_live.to(dev),
+                               box.to(dev), real).cpu()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"K8 {name} ({real} real clusters, {n_rays} rays, "
+                    f"{live} live): {int((got != want).sum())} mask bytes "
+                    "differ from the plain version")
+            live_rays = -(-live // ek.TILE) * ek.TILE
+            may, key = may[order][:live_rays], key[order][:live_rays]
+            hits = ek._cull_hits(*host[:6], cmin[:real], cmax[:real]).any(1)
+            skipped = int((~warp(may)).sum())
+            nan_hit = int((warp(key == 1) & ~warp(key == 2)
+                           & warp(hits[:live_rays])).sum())
+            skipped_total += skipped
+            nan_hit_total += nan_hit
+            emit("k8_adversarial", case=name, real_clusters=real,
+                 rays=n_rays, live=live, warps=may.numel()
+                 // ek.CULL_WARP_RAYS, warps_skipped=skipped,
+                 nan_only_warps_hitting=nan_hit,
+                 set_bytes=int((want != 0).sum()), equal=True)
+    if not (skipped_total and nan_hit_total):
+        raise AssertionError(f"K8 adversarial cases: {skipped_total} warps "
+                             f"skipped, {nan_hit_total} kept by NaN alone "
+                             "hit")
+
+
 def phase_k8_k9(launches, scene):
     """The epoch engine on the frame's camera and emission launches, with
-    every K8 and K9 call captured and held against the plain version →
-    (K8 row, K9 row, camera launch result) for the kernel table: the
-    camera launch's first epoch, checked in full."""
+    every K8 and K9 call captured and held against the plain version, one
+    row per epoch; K9 also on unaligned job lists; K8 also on adversarial
+    inputs → (K8 row, K9 row, camera launch result) for the kernel table:
+    the camera launch's first epoch, checked in full."""
+    _k8_adversarial(launches[0][1].device)
     rows, camera = {}, None
     for label, o, d, tmin, tmax in launches:
         with recording(ek, "cull_bits") as k8_calls, \
@@ -967,6 +1143,7 @@ def phase_k8_k9(launches, scene):
                            10 if full else 3)
             rows.setdefault(("k9", label), row)
         if full:
+            _k9_unaligned(k9_calls[0][0])
             camera = (o, d, tmin, tmax, res)
         del k8_calls, k9_calls
     return rows[("k8", "camera")], rows[("k9", "camera")], camera
@@ -1033,8 +1210,7 @@ def _k7_case(label, args, mask, capacity, iters):
     t_got, i_got = ck.pair_hits(*args)
     n_tiles = begin.shape[0]
     tile_rays = o.shape[0] // n_tiles
-    sel = torch.arange(0, n_tiles, max(1, n_tiles // K7_CHECK_TILES),
-                       device=o.device)[:K7_CHECK_TILES]
+    sel = spread(n_tiles, K7_CHECK_TILES, o.device)
     rays = (sel[:, None] * tile_rays
             + torch.arange(tile_rays, device=o.device)).reshape(-1)
     part = (pair_cluster, begin[sel], end[sel], o[rays], d[rays], tmin[rays],

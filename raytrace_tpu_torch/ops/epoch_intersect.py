@@ -11,6 +11,8 @@ Per epoch:
 
   1. K8 (ops/epoch_kernels.py `cull_bits`): each tile against every cluster
      box → uint8 mask [C, n_tiles], one bit per subtile crossing the box;
+     warps whose rays cannot reach a real cluster through the scene box
+     leave the real clusters untested (an exact pre-cull);
   2. pair compaction: the first PB set entries of the cluster-major mask in
      ascending order — one `torch.nonzero`, the list JAX builds by a sort
      or by its word-packed form;
@@ -178,6 +180,11 @@ def _intersect_epochs(clusters, o, d, tmin, tmax, n_epochs, budget_scale,
     t1 = (smax[None, :] - o_p) * inv_d
     t_enter = torch.maximum(torch.amax(torch.minimum(t0, t1), dim=1), tmin_p)
     n_live = torch.sum(tmax_p > tmin_p).to(torch.int32).reshape(1)
+    # K8's pre-cull box: the hull of the real clusters' boxes (smin, smax
+    # when every vertex is finite; a NaN vertex makes it NaN, which turns
+    # the pre-cull off)
+    real_box = torch.stack([torch.amin(cmin[:max(n_real, 1)], dim=0),
+                            torch.amax(cmax[:max(n_real, 1)], dim=0)])
 
     pb, spb = _budgets(n, n_tiles, cp, budget_scale, round_size)
     t_best = torch.full((np_,), BIG, dtype=torch.float32, device=dev)
@@ -190,7 +197,8 @@ def _intersect_epochs(clusters, o, d, tmin, tmax, n_epochs, budget_scale,
               else t_enter + bounds[e + 1])
         tb = torch.minimum(t_best, tmax_p).contiguous()
         maskT = ek.cull_bits(o_p, inv_d, tmin_p, tb, w0.contiguous(),
-                             w1.contiguous(), cmin, cmax, n_live)
+                             w1.contiguous(), cmin, cmax, n_live, real_box,
+                             n_real)
 
         pairs, pbits, n_pairs = compact_pairs(maskT, pb)
         sub = ((pbits[:, None].to(torch.int32)

@@ -4,7 +4,8 @@ raytrace_tpu/ops/epoch_intersect.py).
 
   K8 `cull_bits`  epoch-windowed slab cull of 256-ray tiles against the
                   cluster boxes → uint8 [C, n_tiles], bit k: subtile k
-                  (csrc/epoch_cull.cu)
+                  (csrc/epoch_cull.cu); `precull_plain` is its exact
+                  scene-box pre-cull
   K9 `mt_jobs`    Möller–Trumbore of 32-ray subtiles against one cluster's
                   triangles per job → per-job (t, idx) [J, 32]
                   (csrc/epoch_mt.cu)
@@ -25,6 +26,7 @@ BIG = 1e30
 TILE = 256  # cull-tile rays
 SUB = 32  # subtile rays: one warp, one bit of the mask
 NSUB = TILE // SUB
+CULL_WARP_RAYS = 128  # csrc/epoch_cull.cu: a warp's four rays per lane
 _ELEMS_PER_STEP = 1 << 24  # plain versions: tests per block of work
 
 
@@ -32,30 +34,52 @@ _ELEMS_PER_STEP = 1 << 24  # plain versions: tests per block of work
 # K8: the cull
 # ---------------------------------------------------------------------------
 
-def _cull_hits(o, inv, tmin, tbest, w0, w1, cmin, cmax):
-    """Rays [R] against boxes [C] → hit [R, C] bool (JAX `_cull_kernel_body`
-    :101-120, minimum/maximum propagating NaN)."""
+def _slab(o, inv, bmin, bmax):
+    """Rays [R] through boxes [C] → entry and exit distances tn, tf [R, C]
+    (JAX `_cull_kernel_body` :101-117, minimum/maximum propagating NaN)."""
     r = lambda a: a[:, None]
     c = lambda a: a[None, :]
 
     def axis_slab(k):
-        t0 = (c(cmin[:, k]) - r(o[:, k])) * r(inv[:, k])
-        t1 = (c(cmax[:, k]) - r(o[:, k])) * r(inv[:, k])
+        t0 = (c(bmin[:, k]) - r(o[:, k])) * r(inv[:, k])
+        t1 = (c(bmax[:, k]) - r(o[:, k])) * r(inv[:, k])
         return torch.minimum(t0, t1), torch.maximum(t0, t1)
 
     n0, f0 = axis_slab(0)
     n1, f1 = axis_slab(1)
     n2, f2 = axis_slab(2)
-    tn = torch.maximum(torch.maximum(n0, n1), n2)
-    tf = torch.minimum(torch.minimum(f0, f1), f2)
+    return (torch.maximum(torch.maximum(n0, n1), n2),
+            torch.minimum(torch.minimum(f0, f1), f2))
+
+
+def _cull_hits(o, inv, tmin, tbest, w0, w1, cmin, cmax):
+    """Rays [R] against boxes [C] → hit [R, C] bool (JAX `_cull_kernel_body`
+    :101-120)."""
+    r = lambda a: a[:, None]
+    tn, tf = _slab(o, inv, cmin, cmax)
     tnc = torch.maximum(tn, r(tmin))
     return ((tn <= tf) & (tf > r(tmin)) & (tnc >= r(w0)) & (tnc < r(w1))
             & (tnc < r(tbest)))
 
 
+def precull_plain(o, inv, tmin, tbest, w0, w1, box):
+    """The exact pre-cull of K8: rays [N] against the scene box `box` [2, 3]
+    (min row, max row), which holds every real cluster → bool [N], False
+    where the ray can set no bit of any real cluster. The same slab test
+    as the cull; without NaN every real cluster's tn, tf, tnc lie inside the
+    box's (rounding is monotone), so a hit needs tn ≤ tf, tf > tmin,
+    w0 ≤ tf, tnc < w1, tnc < tbest and w0 < tbest on the box; a NaN there
+    (0·inf) means "may hit". csrc/epoch_cull.cu skips a warp none of whose
+    rays may hit."""
+    tn, tf = (x[:, 0] for x in _slab(o, inv, box[:1], box[1:]))
+    tnc = torch.maximum(tn, tmin)
+    return torch.isnan(tn) | ((tn <= tf) & (tf > tmin) & (w0 <= tf)
+                              & (tnc < w1) & (tnc < tbest) & (w0 < tbest))
+
+
 def cull_bits_plain(o, inv, tmin, tbest, w0, w1, cmin, cmax, n_live):
-    """Plain PyTorch version of K8, the same arguments → uint8 [C,
-    n_tiles]."""
+    """Plain PyTorch version of K8, the same arguments but the pre-cull's
+    box and n_real, which change no bit → uint8 [C, n_tiles]."""
     n_tiles = o.shape[0] // TILE
     n_clusters = cmin.shape[0]
     out = torch.zeros((n_clusters, n_tiles), dtype=torch.uint8,
@@ -75,17 +99,23 @@ def cull_bits_plain(o, inv, tmin, tbest, w0, w1, cmin, cmax, n_live):
     return torch.where(live[None, :], out, 0).to(torch.uint8)
 
 
-_CULL_SIGNATURES = {"epoch_cull": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
-                    + [ctypes.c_void_p] * 2}
+_CULL_SIGNATURES = {"epoch_cull": [ctypes.c_void_p] * 10
+                    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2}
 
 
-def cull_bits(o, inv, tmin, tbest, w0, w1, cmin, cmax, n_live):
+def cull_bits(o, inv, tmin, tbest, w0, w1, cmin, cmax, n_live, box, n_real):
     """Kernel K8. Rays in tile order: o, inv [N, 3] (inv = 1/d, 1e-30 where
     d is 0), tmin, tbest, w0, w1 [N] (N a multiple of 256); cluster boxes
     cmin, cmax [C, 3]; n_live int32 [1], the live-prefix ray count (tiles
     past it give zeros untested) → uint8 [C, N/256], bit k of (c, tile) set
     when a ray of subtile k enters box c at a distance in [w0, w1), below
     tbest, past tmin.
+
+    `box` float32 [2, 3] (min row, max row) must hold the boxes of clusters
+    0 .. n_real − 1, each with min ≤ max (NaN allowed): the kernel then
+    leaves those clusters untested for warps whose rays all fail
+    `precull_plain`, which changes no bit. Clusters from n_real on (the
+    padding) are always tested.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if o.device.type == "cpu":
@@ -99,13 +129,14 @@ def cull_bits(o, inv, tmin, tbest, w0, w1, cmin, cmax, n_live):
         (o, f32, (n, 3)), (inv, f32, (n, 3)), (tmin, f32, (n,)),
         (tbest, f32, (n,)), (w0, f32, (n,)), (w1, f32, (n,)),
         (cmin, f32, (n_clusters, 3)), (cmax, f32, (n_clusters, 3)),
-        (n_live, torch.int32, (1,))])
+        (box, f32, (2, 3)), (n_live, torch.int32, (1,))])
     lib = cuda_lib.load("epoch_cull", _CULL_SIGNATURES)
     out = torch.empty((n_clusters, n // TILE), dtype=torch.uint8,
                       device=o.device)
     p = cuda_lib.ptr
     err = lib.epoch_cull(p(o), p(inv), p(tmin), p(tbest), p(w0), p(w1),
-                         p(cmin), p(cmax), p(n_live), n_clusters, n // TILE,
+                         p(cmin), p(cmax), p(box), p(n_live), n_clusters,
+                         min(max(int(n_real), 0), n_clusters), n // TILE,
                          p(out), cuda_lib.stream_ptr(o.device))
     cuda_lib.check(err, "epoch_cull")
     cull_bits.launches += 1

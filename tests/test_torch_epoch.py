@@ -177,13 +177,22 @@ def test_cull_plain_equals_jax(n_rays, n_live):
         n_live_groups=jnp.int32(-(-n_live // 2048)))
     inv = 1.0 / np.where(d == 0.0, np.float32(1e-30), d)
     pbits = ek.cull_bits(t(o), t(inv), t(tmin), t(tbest), t(w0), t(w1),
-                         pcs.cmin, pcs.cmax, t(np.array([n_live], np.int32)))
+                         pcs.cmin, pcs.cmax, t(np.array([n_live], np.int32)),
+                         *_precull(pcs))
     assert pbits.dtype == torch.uint8 and pbits.shape == (128, n_tiles)
     np.testing.assert_array_equal(n(pbits).T.astype(np.int32), n(jbits))
     live_tiles = -(-n_live // ek.TILE)
     assert not n(pbits)[:, live_tiles:].any()
     if n_live:
         assert n(pbits)[:, :live_tiles].any()
+
+
+def _precull(pcs):
+    """K8's pre-cull arguments for a port cluster set, as the engine passes
+    them: the hull of the real clusters' boxes and their count."""
+    n_real = -(-pcs.n_tris // pcs.tv.shape[2])
+    return (torch.stack([pcs.cmin[:n_real].amin(0),
+                         pcs.cmax[:n_real].amax(0)]), n_real)
 
 
 def _job_list(rng, cp, n_real, n_subtiles, count):
@@ -341,7 +350,8 @@ def test_wrappers_on_cpu_take_the_plain_versions():
     args = (t(o), inv, t(tmin), t(tbest), t(w0), t(w1), pcs.cmin, pcs.cmax,
             t(np.array([700], np.int32)))
     k8, k9 = ek.cull_bits.launches, ek.mt_jobs.launches
-    assert torch.equal(ek.cull_bits(*args), ek.cull_bits_plain(*args))
+    assert torch.equal(ek.cull_bits(*args, *_precull(pcs)),
+                       ek.cull_bits_plain(*args))
     jobs = (torch.tensor([0, 0, 3], dtype=torch.int32),
             torch.tensor([1, 7, 30], dtype=torch.int32))
     margs = jobs + (t(o), t(d), t(tmin), t(tbest), pcs.tv)
