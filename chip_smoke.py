@@ -4,21 +4,25 @@
     python3 chip_smoke.py --profile FILE    # also torch.profiler tables of a
                                             # frame, a gradient step, a
                                             # preview render, a simple
-                                            # frame and a large frame,
-                                            # written to FILE*
+                                            # frame, a large simple frame
+                                            # and a large frame, written
+                                            # to FILE*
 
 Phases, one JSON result line each:
   1. device     the card's name and power limit; raises without CUDA
   2. build      nvcc builds kernels K1-K9 from
-                raytrace_tpu_torch/csrc, and g++ the host BVH builder, one
-                compiler process per source, all at once
+                raytrace_tpu_torch/csrc and g++ the host BVH builder, one
+                compiler process per library, all at once
   3. k1         K1 (closest hit) against its plain PyTorch version on
                 262,144 random rays: the Cornell triangles and a
                 4,096-triangle soup; hit flips are bounded
   4. k2         K2 (row-span gather) against its plain version on the
                 gather inputs of the full-size frame
   5. k3         K3 (the gather's backward in the photon flux) against its
-                plain version on the same inputs and a random cotangent
+                plain version on the same inputs and a random cotangent:
+                the chunks' job counts (busy, p50, p99, max), J and the
+                work items and their scratch slots, two launches equal bit
+                for bit
   6. k4         K4 (dense small-map gather) against its plain version on the
                 gather inputs of the preview's first wave (2,048 paths)
   7. k5         K5 (Morton-span gather) against its plain version on the
@@ -69,7 +73,14 @@ The large-scene path (BASELINE config[4], 4,194,304 triangles):
                 plain versions on every call of one run_triangle_field frame
                 (its camera and shadow launches, captured from the cluster
                 engine): K6's mask in full, K7's (t, idx) on the pairs of
-                the first 256 tiles; equal
+                256 tiles spread over the launch; equal. K7 also on
+                adversarial tiles at 128 and 256 rays a tile (k7_adversarial:
+                pairs over several work items, a tie across an item
+                boundary, warps failing the beta gate, empty windows, a
+                tile without pairs), its SASS instructions per test and
+                registers (k7_sass), each launch's pairs per tile and work
+                items, and a bound on the work its function needs beside the
+                bound on all tests
  20. cluster_engine  the cluster engine against the epoch engine on the same
                 two launches: overflow 0, flips and t bounded, idx
                 differences counted, each engine timed per launch
@@ -104,6 +115,7 @@ import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 import raytrace_tpu_torch
@@ -121,10 +133,12 @@ from raytrace_tpu_torch.ops import epoch_kernels as ek
 from raytrace_tpu_torch.ops import grid_gather as gg
 from raytrace_tpu_torch.ops import rowspan_gather as rg
 from raytrace_tpu_torch.ops import tri_intersect as ti
+from raytrace_tpu_torch.ops.work_items import work_items
 from raytrace_tpu_torch.renderers import common, photon, simple
 from raytrace_tpu_torch.scene import presets
 from raytrace_tpu_torch.scene.camera import generate_rays, pixel_samples
 from raytrace_tpu_torch.scene.scene import GLASS
+from raytrace_tpu_torch.utils import sass
 
 SIZE = 512
 # bench.py:78-85, the frame users render through render_photon
@@ -190,6 +204,9 @@ K9_GATE_OPS = 9 + 5 + 2 + 3 + 6 + 7
 K9_TAIL_OPS = K9_PAIR_OPS - K9_GATE_OPS
 # elements per step of that count, as the plain version steps
 K9_GATE_STEP = 1 << 25
+# K7's test and gate are K9's; its warps hold 32 rays in each of two slots,
+# so the second half is needed for a (pair, 32-ray group, triangle) where a
+# live lane passes
 K6_TEST_OPS = 27
 K7_PAIR_OPS = K1_PAIR_OPS
 GATHER_TEST_OPS = 10
@@ -409,9 +426,23 @@ def phase_k2(jobs, queries, photons):
     return row
 
 
+def spread_stats(lengths) -> dict:
+    """How uneven a kernel's ranges are: the owners with work and the
+    mean, p50, p90, p99 and max of their lengths."""
+    busy = lengths[lengths > 0].double()
+    if busy.numel() == 0:
+        return dict(busy=0)
+    q = torch.quantile(busy, torch.tensor([0.5, 0.9, 0.99],
+                                          dtype=torch.float64,
+                                          device=busy.device)).tolist()
+    return dict(busy=busy.numel(), mean=float(busy.mean()), p50=q[0],
+                p90=q[1], p99=q[2], max=int(busy.max()))
+
+
 def phase_k3(dev, jobs):
     """K3 on the same inputs, re-sorted chunk-major, with a nonnegative
-    cotangent from its own generator."""
+    cotangent from its own generator: checked, launched twice and compared
+    bit for bit, timed."""
     n_tiles = jobs["tile_begin"].shape[0]
     pid, begin, end = rg.chunk_major(jobs["pid"], jobs["n_valid"],
                                      jobs["n_chunks"], n_tiles)
@@ -420,6 +451,7 @@ def phase_k3(dev, jobs):
     args = (pid, begin, end, n_tiles, jobs["qpT"], jobs["qr2"], jobs["qnsT"],
             cotT, jobs["pdata"])
     got = rg.rowspan_S_bwd(*args)
+    again = rg.rowspan_S_bwd(*args)
     want = rg.rowspan_S_bwd_plain(*args)
     torch.cuda.synchronize()
     terms = want[:, 3:4]
@@ -439,6 +471,8 @@ def phase_k3(dev, jobs):
             f"{float(terms[c, 0, k])} terms)")
     err = float(delta.max())
     ulps = float((delta / unit.clamp(min=1e-30)).max())
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError("K3: two launches on the same inputs differ")
     ms = cuda_ms(lambda: rg.rowspan_S_bwd(*args), 20)
     plain_ms = cuda_ms(lambda: rg.rowspan_S_bwd_plain(*args), 2)
     n_jobs = int(jobs["n_valid"])
@@ -450,11 +484,22 @@ def phase_k3(dev, jobs):
                        nq * (7 + 3) * 4 + jobs["n_chunks"] * chunk * (7 + 4)
                        * 4 + n_jobs * 4 + jobs["n_chunks"] * 8),
                library_ms=None)
+    lib = cuda_lib.load("rowspan_gather_bwd", rg._BWD_SIGNATURES)
+    item_jobs = lib.rowspan_gather_bwd_item_jobs()
+    slots = jobs["n_chunks"] + pid.shape[0] // item_jobs  # as the wrapper
     emit("k3", jobs=n_jobs,
          chunks=jobs["n_chunks"], chunks_without_jobs=int(empty.sum()),
-         terms=float(want[:, 3].sum()),
+         chunk_jobs=spread_stats(end - begin), item_jobs=item_jobs,
+         items=_items(begin, end, item_jobs), slots=slots,
+         scratch_bytes=slots * 4 * chunk * 4,
+         repeats_bit_for_bit=True, terms=float(want[:, 3].sum()),
          max_dalpha=float(want[:, :3].max()), max_err_over_K_ulp=ulps, **row)
     return row
+
+
+def _items(begin, end, size) -> int:
+    """Work items of at most `size` over the ranges [begin, end)."""
+    return int(work_items(begin, end, size, 0)[4].sum())
 
 
 def phase_k4(dev, scene, cfg, rec, r2, k_photon):
@@ -962,21 +1007,19 @@ def _k8_case(label, epoch, args, tiles, iters):
     return row
 
 
-def _k9_gate_pairs(args) -> int:
-    """(job, triangle) pairs of one K9 call where a live lane (tmin < tmax)
-    has det != 0 and 0 <= beta <= 1: the plain version's first half of the
-    test, its operations in its order, on the call's own inputs."""
-    job_cluster, job_subtile, o, d, tmin, tmax, tv = args
-    n_jobs, s = job_cluster.shape[0], tv.shape[2]
-    lanes = torch.arange(ek.SUB, device=o.device)
-    live = tmin < tmax
+def _gate_groups(cl, ray, o, d, live, tv) -> int:
+    """(row, 32-ray group, triangle) triples where a live lane (`live`, the
+    kernel's window test) has det != 0 and 0 <= beta <= 1: the plain
+    version's first half of the test, its operations in its order, for rows
+    of clusters cl [R] and rays ray [R, 32·G] (K9: a job's 32 rays; K7: a
+    pair's tile)."""
     count = torch.zeros((), dtype=torch.int64, device=o.device)
-    step = max(1, K9_GATE_STEP // (ek.SUB * s))
-    for j0 in range(0, n_jobs, step):
-        cl = job_cluster[j0:j0 + step].long()
-        ray = job_subtile[j0:j0 + step].long()[:, None] * ek.SUB + lanes
-        r = lambda a: a[ray][..., None]  # [Jc, 32, 1]
-        v = [x[:, None, :] for x in tv[cl].unbind(1)]  # each [Jc, 1, S]
+    s = tv.shape[2]
+    step = max(1, K9_GATE_STEP // (ray.shape[1] * s))
+    for j0 in range(0, cl.shape[0], step):
+        rr = ray[j0:j0 + step]
+        r = lambda a: a[rr][..., None]  # [Rc, L, 1]
+        v = [x[:, None, :] for x in tv[cl[j0:j0 + step].long()].unbind(1)]
         e1x, e1y, e1z = v[3] - v[0], v[4] - v[1], v[5] - v[2]
         e2x, e2y, e2z = v[6] - v[0], v[7] - v[1], v[8] - v[2]
         dx, dy, dz = r(d[:, 0]), r(d[:, 1]), r(d[:, 2])
@@ -989,8 +1032,17 @@ def _k9_gate_pairs(args) -> int:
         beta = (((r(o[:, 0]) - v[0]) * px + (r(o[:, 1]) - v[1]) * py
                  + (r(o[:, 2]) - v[2]) * pz) * inv_det)
         gate = (det != 0.0) & (beta >= 0.0) & (beta <= 1.0) & r(live)
-        count += gate.any(1).sum()
+        count += gate.reshape(gate.shape[0], -1, 32, s).any(2).sum()
     return int(count)
+
+
+def _k9_gate_pairs(args) -> int:
+    """(job, triangle) pairs of one K9 call where a live lane has det != 0
+    and 0 <= beta <= 1 (`_gate_groups` on the call's own inputs)."""
+    job_cluster, job_subtile, o, d, tmin, tmax, tv = args
+    ray = (job_subtile.long()[:, None] * ek.SUB
+           + torch.arange(ek.SUB, device=o.device))
+    return _gate_groups(job_cluster, ray, o, d, tmin < tmax, tv)
 
 
 def _k9_case(label, epoch, args, jobs, iters, order="engine"):
@@ -1201,11 +1253,39 @@ def _k6_case(label, args, iters):
     return row, got
 
 
+def _k7_item_pairs() -> int:
+    return cuda_lib.load("cluster_pair",
+                         ck._PAIR_SIGNATURES).cluster_pair_item_pairs()
+
+
+def _k7_gate(args) -> tuple[int, int]:
+    """(tests of live 32-ray groups, (pair, 32-ray group, triangle) triples
+    past the gate) of one K7 call: what its function needs, the first half
+    of every test of a group with a live ray and the second half only past
+    the gate (`_gate_groups` on every pair of the call)."""
+    pair_cluster, begin, end, o, d, tmin, tmax, tv = args
+    n_tiles = begin.shape[0]
+    tile_rays = o.shape[0] // n_tiles
+    counts = (end - begin).long().clamp(min=0)
+    total = int(counts.sum())
+    tiles = torch.repeat_interleave(torch.arange(n_tiles, device=o.device),
+                                    counts, output_size=total)
+    pairs = (begin.long()[tiles] + torch.arange(total, device=o.device)
+             - (torch.cumsum(counts, 0) - counts)[tiles])
+    live = tmin < torch.minimum(tmax, torch.tensor(BIG, device=o.device))
+    live_groups = live.reshape(n_tiles, -1, 32).any(2).sum(1)
+    gate_tests = int(live_groups[tiles].sum()) * 32 * tv.shape[2]
+    ray = tiles[:, None] * tile_rays + torch.arange(tile_rays,
+                                                    device=o.device)
+    return gate_tests, _gate_groups(pair_cluster[pairs], ray, o, d, live, tv)
+
+
 def _k7_case(label, args, mask, capacity, iters):
     """K7 on one captured call against the plain version on the pairs of
     K7_CHECK_TILES tiles spread evenly over the launch (its first tiles
     can be all sky); n_pairs and overflow from the launch's mask (seeds
-    set) and the engine's capacity."""
+    set) and the engine's capacity. Bounds the kernel on all tests and on
+    the work its function needs (`_k7_gate`)."""
     pair_cluster, begin, end, o, d, tmin, tmax, tv = args
     t_got, i_got = ck.pair_hits(*args)
     n_tiles = begin.shape[0]
@@ -1231,24 +1311,109 @@ def _k7_case(label, args, mask, capacity, iters):
     kept = int((end - begin).sum())  # the pairs run: real clusters only
     s = tv.shape[2]
     tests = kept * tile_rays * s
+    gate_tests, gate_groups = _k7_gate(args)
+    tail_tests = gate_groups * 32
+    nbytes = (pair_cluster.shape[0] * 4 + n_tiles * 8 + o.shape[0] * 8 * 4
+              + tv.numel() * 4 + o.shape[0] * 8)
+    full = bound(K7_PAIR_OPS * tests, nbytes)
     row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-               **bound(K7_PAIR_OPS * tests,
-                       pair_cluster.shape[0] * 4 + n_tiles * 8
-                       + o.shape[0] * 8 * 4 + tv.numel() * 4
-                       + o.shape[0] * 8), library_ms=None)
+               **bound(K9_GATE_OPS * gate_tests + K9_TAIL_OPS * tail_tests,
+                       nbytes),
+               bound_all_tests_ms=full["bound_ms"], library_ms=None)
+    item_pairs = _k7_item_pairs()
     emit("k7", launch=label, rays=o.shape[0], tiles=n_tiles,
          clusters=tv.shape[0], kept_pairs=kept, n_pairs=n_pairs,
-         overflow=overflow, pair_tests=tests, triangles_per_pair=s,
-         hits=int((t_got < BIG).sum()), checked_tiles=sel.shape[0],
+         overflow=overflow, tile_pairs=spread_stats(end - begin),
+         item_pairs=item_pairs, items=_items(begin, end, item_pairs),
+         pair_tests=tests, gate_tests=gate_tests, gate_groups=gate_groups,
+         tail_tests=tail_tests, tail_share=tail_tests / max(gate_tests, 1),
+         triangles_per_pair=s, hits=int((t_got < BIG).sum()),
+         checked_tiles=sel.shape[0],
          checked_pairs=int((end[sel] - begin[sel]).sum()), **row)
     return row
+
+
+def _k7_adversarial(dev, tile_rays):
+    """K7 on the card against the plain version on the CPU, equal bit for
+    bit, on six tiles built to reach each of its paths: right triangles
+    with legs along +x and ±y (so beta is the ray's x offset over the x
+    leg), S = 61 (halves of 31 and 30), clusters of random ones at z in
+    [0, 1] and, in clusters P − 1 and P (either side of the first item
+    boundary of a tile that starts at cluster 0), one large triangle at
+    z = 2 at indices 7 and 3. Tile 0: 2P + 5 pairs (three items), half its
+    rays on the tied triangle; tile 1: rays at x < −40, where beta < 0 for
+    every triangle and lane; tile 2: P + 2 pairs, rays with empty windows
+    (tmax 0, NaN, tmax < tmin), all but one ray of the second warp's; tile
+    3: no pair; tile 4: one pair; tile 5: P pairs (one full item)."""
+    p = _k7_item_pairs()
+    s, n_clusters = 61, 2 * p + 8
+    rng = np.random.default_rng(17)
+    v0 = np.stack([rng.uniform(0, 4, (n_clusters, s)),
+                   rng.uniform(0, 4, (n_clusters, s)),
+                   rng.uniform(0, 1, (n_clusters, s))])
+    w = rng.uniform(0.2, 0.6, (n_clusters, s))
+    h = rng.uniform(0.2, 0.6, (n_clusters, s)) * rng.choice([-1, 1], w.shape)
+    v1, v2 = v0.copy(), v0.copy()
+    v1[0] += w
+    v2[1] += h
+    for c, k in ((p - 1, 7), (p, 3)):
+        v0[:, c, k], v1[:, c, k], v2[:, c, k] = (0, 0, 2), (4, 0, 2), (0, 4, 2)
+    tv = torch.tensor(np.concatenate([v0, v1, v2]).transpose(1, 0, 2),
+                      dtype=torch.float32).contiguous()  # [C, 9, S]
+    n = 6 * tile_rays
+    o = np.stack([rng.uniform(0, 4, n), rng.uniform(0, 4, n),
+                  np.full(n, 5.0)], 1)
+    d = np.stack([rng.normal(0, 0.2, n), rng.normal(0, 0.2, n),
+                  np.full(n, -1.0)], 1)
+    tmin, tmax = np.full(n, 1e-3), np.full(n, BIG)
+    half = tile_rays // 2
+    o[:half, :2] = rng.uniform(0.2, 1.5, (half, 2))  # tile 0: the tie
+    d[:half] = (0, 0, -1)
+    o[tile_rays:2 * tile_rays, 0] = rng.uniform(-50, -40, tile_rays)
+    d[tile_rays:2 * tile_rays, :2] = 0
+    t2 = 2 * tile_rays  # tile 2: its first warp's windows are empty
+    tmax[t2:t2 + 64] = 0.0
+    tmax[t2 + 64:t2 + 96] = np.nan
+    tmin[t2 + 96:t2 + 127], tmax[t2 + 96:t2 + 127] = 5.0, 4.0
+    o[t2 + 127], d[t2 + 127] = (1, 1, 5), (0, 0, -1)  # on the tie
+    ranges = [range(2 * p + 5), range(p + 1), range(p + 2), range(0),
+              range(1), range(p)]
+    pairs = torch.tensor([c for r in ranges for c in r], dtype=torch.int32)
+    lengths = torch.tensor([len(r) for r in ranges])
+    end = torch.cumsum(lengths, 0).to(torch.int32)
+    begin = (end - lengths).to(torch.int32)
+    host = [pairs, begin, end] + [torch.tensor(x, dtype=torch.float32)
+                                  for x in (o, d, tmin, tmax)] + [tv]
+    want = ck.pair_hits_plain(*host)
+    got = [x.cpu() for x in ck.pair_hits(*[x.to(dev) for x in host])]
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        bad = int(((got[0] != want[0]) | (got[1] != want[1])).sum())
+        raise AssertionError(f"K7 adversarial ({tile_rays} rays a tile): "
+                             f"(t, idx) of {bad} rays differ from the plain "
+                             "version")
+    t_w, i_w = want
+    tile = lambda k: slice(k * tile_rays, (k + 1) * tile_rays)
+    tied = i_w[:half] == (p - 1) * s + 7
+    dead = (t_w[t2:t2 + 127] == BIG).all() and bool(t_w[t2 + 127] < BIG)
+    if not (tied.all() and (t_w[tile(1)] == BIG).all() and dead
+            and (t_w[tile(3)] == BIG).all() and (i_w[tile(3)] == 0).all()):
+        raise AssertionError(f"K7 adversarial ({tile_rays} rays a tile): "
+                             "the cases do not reach their paths")
+    emit("k7_adversarial", tile_rays=tile_rays, triangles_per_cluster=s,
+         item_pairs=p, tile_pairs=lengths.tolist(),
+         items=_items(begin, end, p), tied_rays=int(tied.sum()),
+         hits=int((t_w < BIG).sum()), equal=True)
 
 
 def phase_k6_k7(dev, scene, cam):
     """One run_triangle_field frame with every K6, K7 and cluster-engine
     call captured; each kernel call held against its plain version → (K6
     row, K7 row, the launches [(label, o, d, tmin, tmax, kwargs)]) for the
-    kernel table: the camera launch's."""
+    kernel table: the camera launch's. K7 also on adversarial tiles, and
+    its SASS instructions per test and registers."""
+    for tile_rays in (128, 256):
+        _k7_adversarial(dev, tile_rays)
+    emit("k7_sass", **sass.report("cluster_pair"))
     cfg = RenderConfig(**LARGE_SIMPLE)
     with warnings.catch_warnings(record=True) as caught, \
             recording(ci, "intersect_clusters") as launches, \
@@ -1326,7 +1491,7 @@ def _reset_kernel_counts():
 
 def phase_large_simple(dev, scene, cam, frames=3):
     """render_simple at run_triangle_field's settings on the 4M scene →
-    launch counts over the timed frames."""
+    (launch counts over the timed frames, the median frame's seconds)."""
     cfg = RenderConfig(**LARGE_SIMPLE)
     simple.render_simple(scene, cam, cfg, prng.PRNGKey(0, dev))
     torch.cuda.synchronize()
@@ -1360,7 +1525,7 @@ def phase_large_simple(dev, scene, cam, frames=3):
          launches_per_frame={k: v / frames for k, v in counts.items()
                              if k != "k2"},
          image_mean=float(img.mean()))
-    return counts
+    return counts, frame_s
 
 
 def phase_large_reference(dev):
@@ -1480,7 +1645,8 @@ def main() -> None:
                     help="write per-kernel device-time tables of one frame "
                          "(FILE), one gradient step (FILE.grad), one "
                          "16-wave preview render (FILE.preview), one "
-                         "simple frame (FILE.simple) and one large frame "
+                         "simple frame (FILE.simple), one large simple "
+                         "frame (FILE.large_simple) and one large frame "
                          "(FILE.large)")
     args = ap.parse_args()
     # the kernels must be built from this checkout's sources, not from a
@@ -1547,7 +1713,11 @@ def main() -> None:
     k6, k7, coherent = phase_k6_k7(dev, lscene, lcam)
     phase_cluster_engine(lscene, coherent)
     del coherent
-    simple_counts = phase_large_simple(dev, lscene, lcam)
+    simple_counts, large_simple_s = phase_large_simple(dev, lscene, lcam)
+    if args.profile:
+        profile_step("profile_large_simple", lambda: simple.render_simple(
+            lscene, lcam, RenderConfig(**LARGE_SIMPLE), prng.PRNGKey(9, dev)),
+            large_simple_s, args.profile + ".large_simple")
     large_counts, _ = phase_large(
         dev, lscene, lcam, args.profile and args.profile + ".large")
 

@@ -6,7 +6,8 @@ raytrace_tpu/ops/cluster_intersect.py).
                    boxes → uint8 [n_tiles, C], 1 where any ray of the tile
                    crosses the box (csrc/cluster_cull.cu)
   K7 `pair_hits`   Möller–Trumbore of each tile's rays against the
-                   triangles of the clusters of its kept pairs → per-ray
+                   triangles of the clusters of its kept pairs, the pairs
+                   cut into work items (ops/work_items.py) → per-ray
                    (t, idx) (csrc/cluster_pair.cu)
 
 On CUDA tensors each wrapper launches its kernel or raises; on CPU tensors
@@ -20,6 +21,7 @@ import ctypes
 import torch
 
 from raytrace_tpu_torch.ops import cuda_lib
+from raytrace_tpu_torch.ops.work_items import work_items
 
 BIG = 1e30
 _ELEMS_PER_STEP = 1 << 24  # plain versions: tests per block of work
@@ -164,25 +166,29 @@ def pair_hits_plain(pair_cluster, tile_begin, tile_end, o, d, tmin, tmax, tv):
     return t_out, i_out.to(torch.int32)
 
 
-_PAIR_SIGNATURES = {"cluster_pair": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+_PAIR_SIGNATURES = {"cluster_pair_item_pairs": [],
+                    "cluster_pair": [ctypes.c_void_p] * 4 + [ctypes.c_int]
+                    + [ctypes.c_void_p] * 3 + [ctypes.c_int]
                     + [ctypes.c_void_p] * 5 + [ctypes.c_int]
-                    + [ctypes.c_void_p] * 3}
+                    + [ctypes.c_void_p] * 5}
 
 
 def pair_hits(pair_cluster, tile_begin, tile_end, o, d, tmin, tmax, tv):
     """Kernel K7. Kept pairs pair_cluster int32 [P], sorted tile-major and
     by ascending cluster inside a tile; tile t's pairs are [tile_begin[t],
     tile_end[t]) (int32 [T]); rays in tile order o, d [N, 3], tmin, tmax [N]
-    (N = T·tile_rays); cluster triangles tv [C, 9, S] → per ray the closest
-    t within (tmin, min(tmax, 1e30)) over its tile's clusters and its index
-    cluster·S + k, the lowest at that t; (1e30, 0) without a hit.
+    (N = T·tile_rays, tile_rays a multiple of 64 up to 256); cluster
+    triangles tv [C, 9, S] → per ray the closest t within (tmin, min(tmax,
+    1e30)) over its tile's clusters and its index cluster·S + k, the lowest
+    at that t; (1e30, 0) without a hit.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if o.device.type == "cpu":
         return pair_hits_plain(pair_cluster, tile_begin, tile_end, o, d,
                                tmin, tmax, tv)
     n, n_tiles, n_pairs = o.shape[0], tile_begin.shape[0], pair_cluster.shape[0]
-    if n_tiles == 0 or n % n_tiles or (n // n_tiles) % 32:
+    if (n_tiles == 0 or n % n_tiles or (n // n_tiles) % 64
+            or n // n_tiles > 256):
         raise ValueError(f"pair_hits: {n} rays in {n_tiles} tiles")
     f32, i32 = torch.float32, torch.int32
     cuda_lib.check_inputs("pair_hits", o.device, [
@@ -192,14 +198,26 @@ def pair_hits(pair_cluster, tile_begin, tile_end, o, d, tmin, tmax, tv):
     if tv.dim() != 3 or tv.shape[1] != 9:
         raise ValueError(f"pair_hits: tv must be [C, 9, S], got "
                          f"{tuple(tv.shape)}")
+    tile_rays = n // n_tiles
     lib = cuda_lib.load("cluster_pair", _PAIR_SIGNATURES)
-    t_out = torch.empty((n,), dtype=f32, device=o.device)
-    i_out = torch.empty((n,), dtype=i32, device=o.device)
+    # each tile's pairs cut into work items of P pairs, one block per item,
+    # on a grid sized without a host sync
+    item_pairs = lib.cluster_pair_item_pairs()
+    slots = n_tiles + n_pairs // item_pairs
+    item_tile, lo, hi, first, count = work_items(tile_begin, tile_end,
+                                                 item_pairs, slots)
+    dev = o.device
+    done = torch.zeros((n_tiles,), dtype=i32, device=dev)
+    part_t = torch.empty((slots, tile_rays), dtype=f32, device=dev)
+    part_i = torch.empty((slots, tile_rays), dtype=i32, device=dev)
+    t_out = torch.full((n,), BIG, dtype=f32, device=dev)
+    i_out = torch.zeros((n,), dtype=i32, device=dev)
     p = cuda_lib.ptr
-    err = lib.cluster_pair(p(pair_cluster), p(tile_begin), p(tile_end),
-                           n_tiles, n // n_tiles, p(o), p(d), p(tmin),
-                           p(tmax), p(tv), tv.shape[2], p(t_out), p(i_out),
-                           cuda_lib.stream_ptr(o.device))
+    err = lib.cluster_pair(p(pair_cluster), p(item_tile), p(lo), p(hi), slots,
+                           p(first), p(count), p(done), tile_rays, p(o), p(d),
+                           p(tmin), p(tmax), p(tv), tv.shape[2], p(part_t),
+                           p(part_i), p(t_out), p(i_out),
+                           cuda_lib.stream_ptr(dev))
     cuda_lib.check(err, "cluster_pair")
     pair_hits.launches += 1
     return t_out, i_out

@@ -77,12 +77,17 @@ def _compile(name: str, src: Path, compiler: list, flags: list) -> Path:
     return out
 
 
+def nvcc_flags(name: str) -> list:
+    """nvcc's flags for the kernel csrc/<name>.cu."""
+    return ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
+                         "-fPIC", *EXTRA_FLAGS.get(name, ())]
+
+
 def build(name: str) -> Path:
     """Compile the kernel csrc/<name>.cu with nvcc (if needed) → path of
     the shared library."""
-    flags = ARCH_FLAGS + ["-std=c++17", "-O3", "-shared", "-Xcompiler",
-                          "-fPIC", *EXTRA_FLAGS.get(name, ())]
-    return _compile(name, SRC_DIR / f"{name}.cu", [nvcc_path()], flags)
+    return _compile(name, SRC_DIR / f"{name}.cu", [nvcc_path()],
+                    nvcc_flags(name))
 
 
 def build_host(name: str) -> Path:
@@ -96,14 +101,20 @@ def build_host(name: str) -> Path:
 def load(name: str, signatures: dict):
     """Build (if needed) and load csrc/<name>.cu; `signatures` maps each C
     entry point to its ctypes argtypes. Every entry point returns the
-    cudaError_t of its launch as an int."""
+    cudaError_t of its launch as an int, apart from the constants' getters."""
     if name not in _loaded:
-        lib = ctypes.CDLL(str(build(name)))
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _loaded[name] = lib
+        _loaded[name] = bind(build(name), signatures)
     return _loaded[name]
+
+
+def bind(path: Path, signatures: dict):
+    """Load the shared library at `path` with each entry point of
+    `signatures` typed (see load)."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
 
 
 def check(err: int, what: str) -> None:

@@ -21,7 +21,8 @@ The gradient (port of `_rowspan_S`'s custom VJP and `_rowspan_bwd_kernel`,
 kernel K3): S is linear in α with weights that depend only on geometry, so
 `RowspanS.backward` runs the transposed sum dα_p = Σ_q w_qp·cot_q over the
 same valid jobs, re-sorted chunk-major (`chunk_major`). `rowspan_S_bwd` is
-K3's wrapper (csrc/rowspan_gather_bwd.cu, one block per photon chunk) with
+K3's wrapper (csrc/rowspan_gather_bwd.cu, one block per work item of at most
+J jobs of one chunk, the items summed per chunk in a fixed order) with
 `rowspan_S_bwd_plain` beside it, exactly as for K2.
 """
 from __future__ import annotations
@@ -33,6 +34,7 @@ from torch import Tensor
 
 from raytrace_tpu_torch.ops import cuda_lib
 from raytrace_tpu_torch.ops.photon_grid import morton3
+from raytrace_tpu_torch.ops.work_items import work_items
 
 TILE_Q = 128
 ROWSPAN_CHUNK = 512
@@ -196,8 +198,10 @@ def rowspan_S_bwd_plain(pid, chunk_begin, chunk_end, n_tiles, qpT, qr2, qnsT,
     return out
 
 
-_BWD_SIGNATURES = {"rowspan_gather_bwd": [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7}
+_BWD_SIGNATURES = {"rowspan_gather_bwd_item_jobs": [],
+                   "rowspan_gather_bwd": [ctypes.c_void_p] * 4 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 8}
 
 
 def rowspan_S_bwd(pid, chunk_begin, chunk_end, n_tiles, qpT, qr2, qnsT, cotT,
@@ -223,13 +227,21 @@ def rowspan_S_bwd(pid, chunk_begin, chunk_end, n_tiles, qpT, qr2, qnsT, cotT,
     if not 0 < chunk <= 1024:  # one thread per photon of the chunk
         raise ValueError(f"rowspan_S_bwd: chunk {chunk} outside (0, 1024]")
     lib = cuda_lib.load("rowspan_gather_bwd", _BWD_SIGNATURES)
-    out = torch.empty((n_chunks, 4, chunk), dtype=torch.float32,
-                      device=qpT.device)
+    # each chunk's jobs cut into work items of J jobs, one block per item,
+    # on a grid sized without a host sync
+    item_jobs = lib.rowspan_gather_bwd_item_jobs()
+    slots = n_chunks + pid.shape[0] // item_jobs
+    item_chunk, lo, hi, first, count = work_items(chunk_begin, chunk_end,
+                                                  item_jobs, slots)
+    dev = qpT.device
+    done = torch.zeros((n_chunks,), dtype=torch.int32, device=dev)
+    partial = torch.empty((slots, 4, chunk), dtype=torch.float32, device=dev)
+    out = torch.zeros((n_chunks, 4, chunk), dtype=torch.float32, device=dev)
     p = cuda_lib.ptr
-    err = lib.rowspan_gather_bwd(p(pid), p(chunk_begin), p(chunk_end),
-                                 n_chunks, n_tiles, chunk, p(qpT), p(qr2),
-                                 p(qnsT), p(cotT), p(pdata), p(out),
-                                 cuda_lib.stream_ptr(qpT.device))
+    err = lib.rowspan_gather_bwd(
+        p(pid), p(item_chunk), p(lo), p(hi), slots, p(first), p(count),
+        p(done), n_chunks, n_tiles, chunk, p(qpT), p(qr2), p(qnsT), p(cotT),
+        p(pdata), p(partial), p(out), cuda_lib.stream_ptr(dev))
     cuda_lib.check(err, "rowspan_gather_bwd")
     rowspan_S_bwd.launches += 1
     return out

@@ -6,7 +6,8 @@
 builds csrc/<name>.cu as the port builds it (or reads LIB.so, the library
 another checkout built of it) and prints one JSON line: the kernel's innermost loop that holds the most
 marker instructions, its length, the tests it runs (marker count ÷ markers
-per test) and instructions per test. A marker occurs a fixed number of
+per test) and instructions per test; and the registers a thread of the
+kernel holds (`cuobjdump -res-usage`). A marker occurs a fixed number of
 times per test in every version of a kernel: FMUL for the ray-box tests
 (6: one product per slab plane), MUFU.RCP for the ray-triangle tests (1:
 the reciprocal of det). Needs nvcc and cuobjdump, so it runs where the card
@@ -93,15 +94,29 @@ def loop_report(text: str, function: str, marker: str,
                 instructions_per_test=(b - a + 1) / tests)
 
 
+def registers(text: str, function: str) -> int:
+    """Registers per thread of `function` in `cuobjdump -res-usage`
+    output."""
+    lines = text.splitlines()
+    for i, line in enumerate(lines):
+        if "Function " in line and function in line:
+            m = re.search(r"REG:(\d+)", " ".join(lines[i:i + 2]))
+            if m:
+                return int(m.group(1))
+    raise RuntimeError(f"no resource usage for {function}")
+
+
 def report(name: str, lib: Path | None = None) -> dict:
     function, marker, per_test = KERNELS[name]
     lib = lib or cuda_lib.build(name)
     cuobjdump = os.path.join(os.path.dirname(cuda_lib.nvcc_path()),
                              "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
-                          capture_output=True, text=True).stdout
+    dump = lambda flag: subprocess.run([cuobjdump, flag, str(lib)],
+                                       check=True, capture_output=True,
+                                       text=True).stdout
     return dict(kernel=name, lib=str(lib),
-                **loop_report(text, function, marker, per_test))
+                **loop_report(dump("-sass"), function, marker, per_test),
+                registers=registers(dump("-res-usage"), function))
 
 
 def main() -> None:

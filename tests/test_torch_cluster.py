@@ -24,6 +24,7 @@ from raytrace_tpu_torch.ops import cluster_intersect as p_ci
 from raytrace_tpu_torch.ops import cluster_kernels as ck
 from raytrace_tpu_torch.ops import epoch_kernels as ek
 from raytrace_tpu_torch.ops import intersect as p_isect
+from raytrace_tpu_torch.ops.work_items import work_items
 from raytrace_tpu_torch.renderers import photon as p_photon
 from raytrace_tpu_torch.renderers import simple as p_simple
 from raytrace_tpu_torch.scene import presets as p_presets
@@ -226,31 +227,70 @@ def test_tie_between_clusters(field):
     _assert_same_hits(jr, pr, v0, v1, v2, o, d)
 
 
-def test_pair_hits_plain_folds_pairs_in_any_grouping(field):
-    """Plain K7 over one tile's pairs equals the fold of its pairs one at a
-    time (strict `<`, earlier pair kept on ties), with a tile of no pairs a
-    defined miss."""
-    _, _, _, _, pcs = field
-    o, d = (t(n(x)) for x in down_rays(256, seed=3))
+def _tied_clusters(field):
+    """The field with the same large triangle at indices 5 and 300 (clusters
+    0 and 1 of 256), and 256 rays straight down onto it (tiles 0 and 1)."""
+    v0, v1, v2 = (x.copy() for x in field[:3])
+    big = np.array([[-1.0, -1.0, 2.0], [1.0, -1.0, 2.0], [0.0, 1.0, 2.0]],
+                   np.float32)
+    for k in (5, 300):
+        v0[k], v1[k], v2[k] = big
+    rng = np.random.default_rng(31)
+    o = np.zeros((256, 3), np.float32)
+    o[:, :2] = (rng.random((256, 2)) - 0.5).astype(np.float32) * 0.6
+    o[:, 2] = 4.0 + rng.random(256).astype(np.float32)
+    d = np.tile(np.array([[0.0, 0.0, -1.0]], np.float32), (256, 1))
+    return p_ci.build_clusters(v0, v1, v2, "cpu", cluster_size=256), t(o), t(d)
+
+
+# (case, pairs of tile 0, pairs per work item): the terrain's pairs one at a
+# time, in items of 2 and 3 (the last one short) and in one item; clusters 0
+# and 1, which hold the same triangle, in two items (a tie across an item
+# boundary) and in one
+FOLDS = [("terrain", [0, 3, 4, 9, 15], 1), ("terrain", [0, 3, 4, 9, 15], 2),
+         ("terrain", [0, 3, 4, 9, 15], 3), ("terrain", [0, 3, 4, 9, 15], 5),
+         ("tie", [0, 1], 1), ("tie", [0, 1], 2)]
+
+
+@pytest.mark.parametrize("case,pairs,size", FOLDS,
+                         ids=[f"{c}-{len(p)}pairs-items_of_{s}"
+                              for c, p, s in FOLDS])
+def test_pair_hits_plain_folds_pairs_in_any_grouping(field, case, pairs,
+                                                     size):
+    """Plain K7 over one tile's pairs equals the fold of its work items
+    (ops/work_items.py), each through the plain version, by K7's rule
+    across items: the smaller t, at equal t the lower index. Tile 1 has no
+    pair, hence no item, and stays the defined miss (1e30, 0)."""
+    if case == "tie":
+        pcs, o, d = _tied_clusters(field)
+    else:
+        pcs = field[4]
+        o, d = (t(n(x)) for x in down_rays(256, seed=3))
     tmin = torch.full((256,), 1e-3)
     tmax = torch.full((256,), BIG)
-    pairs = torch.tensor([0, 3, 4, 9, 15], dtype=torch.int32)
-    begin = torch.tensor([0, 5], dtype=torch.int32)
-    end = torch.tensor([5, 5], dtype=torch.int32)
+    pairs = torch.tensor(pairs, dtype=torch.int32)
+    begin = torch.tensor([0, len(pairs)], dtype=torch.int32)
+    end = torch.tensor([len(pairs), len(pairs)], dtype=torch.int32)
     t_all, i_all = ck.pair_hits_plain(pairs, begin, end, o, d, tmin, tmax,
                                       pcs.tv)
+    _, lo, hi, first, count = work_items(begin, end, size,
+                                         2 + len(pairs) // size)
+    assert count.tolist() == [-(-len(pairs) // size), 0]
     t_ref = torch.full((128,), BIG)
     i_ref = torch.zeros((128,), dtype=torch.int32)
-    for p in range(5):
-        t_p, i_p = ck.pair_hits_plain(pairs[p:p + 1], begin[:1] * 0,
-                                      begin[:1] * 0 + 1, o[:128], d[:128],
-                                      tmin[:128], tmax[:128], pcs.tv)
-        better = t_p < t_ref
+    for k in range(int(count[0])):
+        t_p, i_p = ck.pair_hits_plain(pairs[lo[k]:hi[k]], begin[:1] * 0,
+                                      hi[k:k + 1] - lo[k:k + 1], o[:128],
+                                      d[:128], tmin[:128], tmax[:128], pcs.tv)
+        better = (t_p < t_ref) | ((t_p == t_ref) & (i_p < i_ref))
         t_ref, i_ref = torch.where(better, t_p, t_ref), torch.where(
             better, i_p, i_ref)
     assert torch.equal(t_all[:128], t_ref) and torch.equal(i_all[:128], i_ref)
     assert (t_all[:128] < BIG).sum() > 8
     assert (t_all[128:] == BIG).all() and (i_all[128:] == 0).all()
+    if case == "tie":  # every ray hits both copies at one t: the lower wins
+        assert torch.equal(t_all[:128], o[:128, 2] - 2.0)
+        assert (i_all[:128] == 5).all()
 
 
 def test_wrappers_on_cpu_take_the_plain_versions(field):

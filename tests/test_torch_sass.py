@@ -56,3 +56,16 @@ def test_loop_report_raises_without_a_marked_loop():
         sass.loop_report(_listing(False), "_Z4testv", "MUFU.RCP", 1)
     with pytest.raises(RuntimeError, match="no SASS for missing_kernel"):
         sass.loop_report(_listing(False), "missing_kernel", "FMUL", 6)
+
+
+def test_registers_reads_the_function_of_res_usage():
+    text = "\n".join([
+        "Resource usage:", " Common:", "  GLOBAL:0",
+        " Function _Z12other_kernelv:",
+        "  REG:40 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:360",
+        " Function _Z19cluster_pair_kernelPKiS0_:",
+        "  REG:64 STACK:0 SHARED:1 LOCAL:0 CONSTANT[0]:472"])
+    assert sass.registers(text, "cluster_pair_kernel") == 64
+    assert sass.registers(text, "other_kernel") == 40
+    with pytest.raises(RuntimeError, match="no resource usage for epoch"):
+        sass.registers(text, "epoch_mt_kernel")
