@@ -17,7 +17,9 @@ Phases, one JSON result line each:
                 262,144 random rays: the Cornell triangles and a
                 4,096-triangle soup; hit flips are bounded
   4. k2         K2 (row-span gather) against its plain version on the
-                gather inputs of the full-size frame
+                gather inputs of the full-size frame: the tiles' job counts
+                (busy, p50, p99, max), J and the work items and their
+                scratch slots, two launches equal bit for bit
   5. k3         K3 (the gather's backward in the photon flux) against its
                 plain version on the same inputs and a random cotangent:
                 the chunks' job counts (busy, p50, p99, max), J and the
@@ -72,8 +74,12 @@ The large-scene path (BASELINE config[4], 4,194,304 triangles):
  19. k6, k7     K6 (tile cull) and K7 (pair Möller–Trumbore) against their
                 plain versions on every call of one run_triangle_field frame
                 (its camera and shadow launches, captured from the cluster
-                engine): K6's mask in full, K7's (t, idx) on the pairs of
-                256 tiles spread over the launch; equal. K7 also on
+                engine): K6's mask in full, with the tiles its exact
+                pre-cull skips, K7's (t, idx) on the pairs of 256 tiles
+                spread over the launch; equal. K6 also on the adversarial
+                inputs of tests/test_torch_cluster_precull.py at 128 and
+                256 rays a tile (k6_adversarial), its SASS instructions per
+                test and registers (k6_sass). K7 also on
                 adversarial tiles at 128 and 256 rays a tile (k7_adversarial:
                 pairs over several work items, a tie across an item
                 boundary, warps failing the beta gate, empty windows, a
@@ -89,7 +95,9 @@ The large-scene path (BASELINE config[4], 4,194,304 triangles):
                 every launch coherent, so K6 and K7 and no K8 or K9
  22. large      render_photon at bench.py run_combined's settings (2^22
                 paths, 16.8M slots): a 32×32 triangle_field(2048) frame on
-                the card against the CPU's, a warm-up and 2 frames with K6,
+                the card against the CPU's, the warm-up frame's K2 launch
+                held against its plain version (a k2 line, launch large,
+                with its job spread, pair tests and bound), 2 frames with K6,
                 K7, K8, K9 and K2 launch counts, and one profiled frame
                 (device busy share, K6-K9 and K2 device ms)
 Then the kernel table as one JSON line, the card line from nvidia-smi, and
@@ -399,31 +407,52 @@ def gather_jobs(scene, cfg, rec, r2, k_photon):
     return jobs, int(rec.p.shape[0]), int(photons.valid.sum())
 
 
+def _k2_case(label, args, iters, **extra) -> dict:
+    """K2 on one job list against the plain version: M equal, S within
+    2·M·2^-24·S, two launches equal bit for bit; timed; one "k2" line with
+    the tiles' job spread, J, the work items and their scratch, and
+    `extra` → the kernel-table row."""
+    pid, begin, end, n_chunks, qpT, qr2, qnsT, pdata = args
+    got = rg.rowspan_S(*args)
+    again = rg.rowspan_S(*args)
+    want = rg.rowspan_S_plain(*args)
+    torch.cuda.synchronize()
+    err, ulps = flux_check(f"K2 {label}", got, want)
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"K2 {label}: two launches on the same inputs "
+                             "differ")
+    ms = cuda_ms(lambda: rg.rowspan_S(*args), iters)
+    plain_ms = cuda_ms(lambda: rg.rowspan_S_plain(*args), 1)
+    lengths = (end - begin).long().clamp(min=0)
+    n_jobs = int(lengths.sum())  # the jobs the kernel runs
+    chunk = pdata.shape[2]
+    pairs = n_jobs * rg.TILE_Q * chunk
+    nq, n_tiles = qr2.shape[0], begin.shape[0]
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+               **bound(gather_ops(pairs, float(want[3].sum())),
+                       nq * (7 + 4) * 4 + n_chunks * chunk * 10 * 4
+                       + n_jobs * 4 + n_tiles * 8),
+               library_ms=None)
+    item_jobs = cuda_lib.load("rowspan_gather",
+                              rg._SIGNATURES).rowspan_gather_item_jobs()
+    slots = n_tiles + pid.shape[0] // item_jobs  # as the wrapper
+    emit("k2", launch=label, **extra, tiles=n_tiles, chunks=n_chunks,
+         jobs=n_jobs,
+         tile_jobs=spread_stats(lengths), item_jobs=item_jobs,
+         items=_items(begin, end, item_jobs), slots=slots,
+         scratch_bytes=slots * 4 * rg.TILE_Q * 4, pair_tests=pairs,
+         max_flux=float(want[:3].abs().max()), max_err_over_M_ulp=ulps,
+         repeats_bit_for_bit=True, **row)
+    return row
+
+
 def phase_k2(jobs, queries, photons):
     """K2 on the gather inputs of the full-size frame."""
     args = [jobs[k] for k in ("pid", "tile_begin", "tile_end", "n_chunks",
                               "qpT", "qr2", "qnsT", "pdata")]
-    got = rg.rowspan_S(*args)
-    want = rg.rowspan_S_plain(*args)
-    torch.cuda.synchronize()
-    err, ulps = flux_check("K2", got, want)
-    ms = cuda_ms(lambda: rg.rowspan_S(*args), 20)
-    plain_ms = cuda_ms(lambda: rg.rowspan_S_plain(*args), 2)
-    n_jobs = int(jobs["n_valid"])  # the jobs the kernel runs
-    pairs = n_jobs * rg.TILE_Q * jobs["pdata"].shape[2]
-    nq = jobs["qr2"].shape[0]
-    slots = jobs["n_chunks"] * jobs["pdata"].shape[2]
-    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               **bound(gather_ops(pairs, float(want[3].sum())),
-                       nq * (7 + 4) * 4 + slots * 10 * 4 + n_jobs * 4
-                       + len(jobs["tile_begin"]) * 8),
-               library_ms=None)
-    emit("k2", queries=queries, tiles=len(jobs["tile_begin"]),
-         chunks=jobs["n_chunks"], jobs=int(jobs["n_jobs"]),
-         overflow=int(jobs["overflow"]), photons=photons, pair_tests=pairs,
-         max_flux=float(want[:3].abs().max()), max_err_over_M_ulp=ulps,
-         **row)
-    return row
+    return _k2_case("headline", args, 20, queries=queries, photons=photons,
+                    listed_jobs=int(jobs["n_jobs"]),
+                    overflow=int(jobs["overflow"]))
 
 
 def spread_stats(lengths) -> dict:
@@ -1229,28 +1258,100 @@ def phase_engine(scene, camera):
 
 def _k6_case(label, args, iters):
     """K6 on one captured call against the plain version, in full →
-    (row, mask with the seed column set)."""
-    o, d, tmin, tmax, cmin, cmax, tile_rays = args
+    (row, mask with the seed column set). Counts the tests left after the
+    exact pre-cull (`precull_plain` on the launch's own rays: every padding
+    cluster, and every real cluster for the tiles with a ray that may hit)
+    and bounds the kernel on them and on all tests."""
+    o, d, tmin, tmax, cmin, cmax, tile_rays, n_real = args
     got = ck.cull_tiles(*args)
-    want = ck.cull_tiles_plain(*args)
+    want = ck.cull_tiles_plain(*args[:7])
     torch.cuda.synchronize()
     bad = int((got != want).sum())
     if bad:
         raise AssertionError(f"K6 {label}: {bad} mask bytes differ from the "
                              "plain version")
     ms = cuda_ms(lambda: ck.cull_tiles(*args), iters)
-    plain_ms = cuda_ms(lambda: ck.cull_tiles_plain(*args), 1)
+    plain_ms = cuda_ms(lambda: ck.cull_tiles_plain(*args[:7]), 1)
     n_tiles, n_clusters = got.shape
     tests = o.shape[0] * n_clusters
+    box = torch.stack([cmin[:n_real].amin(0), cmax[:n_real].amax(0)])
+    may = ck.precull_plain(o, d, tmin, tmax, box).reshape(n_tiles, -1).any(1)
+    tiles_may = int(may.sum())
+    precull_tests = tile_rays * (n_tiles * (n_clusters - n_real)
+                                 + tiles_may * n_real)
+    nbytes = o.shape[0] * 8 * 4 + n_clusters * 6 * 4 + n_tiles * n_clusters
+    full = bound(K6_TEST_OPS * tests, nbytes)
     row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-               **bound(K6_TEST_OPS * tests,
-                       o.shape[0] * 8 * 4 + n_clusters * 6 * 4
-                       + n_tiles * n_clusters), library_ms=None)
+               **bound(K6_TEST_OPS * precull_tests, nbytes),
+               bound_all_tests_ms=full["bound_ms"], library_ms=None)
     got[:, 0] = 1  # the engine's seed pairs
     emit("k6", launch=label, rays=o.shape[0], tile_rays=tile_rays,
-         tiles=n_tiles, clusters=n_clusters, tests=tests,
+         tiles=n_tiles, clusters=n_clusters, real_clusters=n_real,
+         tests=tests, tests_after_precull=precull_tests,
+         tiles_skipped=n_tiles - tiles_may,
+         tiles_skipped_frac=(n_tiles - tiles_may) / n_tiles,
          set_bytes=int((want != 0).sum()), **row)
     return row, got
+
+
+def _k6_adversarial(dev, tile_rays):
+    """K6 on the card, with its pre-cull, against the plain version on the
+    CPU, byte for byte, on the inputs tests/test_torch_cluster_precull.py
+    builds: NaN and infinite origins, zero and denormal directions, origins
+    on face planes, grazing rays, padded rays, empty t-windows, an
+    unbounded cluster, padding clusters, and cluster counts (119, 1,137)
+    that are not a multiple of the 32-box word or of a block's 1,024. The
+    rays are grouped as the pre-cull sees them (dropped, kept only for a
+    NaN in the scene-box test, kept) so that whole tiles skip and whole
+    tiles stand on the NaN rule alone. Each case runs twice: all its real
+    clusters behind the box; and 83 (the boundary inside a 32-box word)
+    with three tiles fewer (a block of dead warps). One row per case and
+    way: the tiles that skip, and those kept by NaN alone that hit a real
+    cluster."""
+    path = Path(__file__).resolve().parent / "tests" / \
+        "test_torch_cluster_precull.py"
+    spec = importlib.util.spec_from_file_location("k6_cases", path)
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    skipped_total = nan_hit_total = 0
+    tile = lambda x: x.reshape(-1, tile_rays).any(1)
+    for name in cases.CASES:
+        o, d, tmin, tmax, cmin, cmax, _, n_real = cases._tensors(name)
+        n = o.shape[0]
+        for real, n_rays in ((n_real, n), (83, n - 3 * tile_rays)):
+            box = torch.stack([cmin[:real].amin(0), cmax[:real].amax(0)])
+            may = ck.precull_plain(o, d, tmin, tmax, box)
+            inv = 1.0 / torch.where(d == 0.0, 1e-30, d)
+            nan = (torch.isnan((box[0] - o) * inv).any(1)
+                   | torch.isnan((box[1] - o) * inv).any(1))
+            key = torch.where(may, torch.where(nan, 1, 2), 0)
+            order = torch.argsort(key, stable=True)[:n_rays]
+            host = [a[order] for a in (o, d, tmin, tmax)] + [cmin, cmax]
+            want = ck.cull_tiles_plain(*host, tile_rays)
+            got = ck.cull_tiles(*[a.to(dev) for a in host], tile_rays,
+                                real).cpu()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"K6 {name} ({tile_rays} rays a tile, {real} real "
+                    f"clusters, {n_rays} rays): "
+                    f"{int((got != want).sum())} mask bytes differ from the "
+                    "plain version")
+            hits = ck.cull_tiles_plain(*host, 1)[:, :real].any(1)
+            may, key = may[order], key[order]
+            skipped = int((~tile(may)).sum())
+            nan_hit = int((tile(key == 1) & ~tile(key == 2)
+                           & tile(hits)).sum())
+            skipped_total += skipped
+            nan_hit_total += nan_hit
+            emit("k6_adversarial", case=name, tile_rays=tile_rays,
+                 clusters=cmin.shape[0], real_clusters=real, rays=n_rays,
+                 tiles=want.shape[0], tiles_skipped=skipped,
+                 nan_only_tiles_hitting=nan_hit,
+                 set_bytes=int((want != 0).sum()), equal=True)
+    if not (skipped_total and nan_hit_total):
+        raise AssertionError(f"K6 adversarial cases ({tile_rays} rays a "
+                             f"tile): {skipped_total} tiles skipped, "
+                             f"{nan_hit_total} kept by NaN alone hit")
 
 
 def _k7_item_pairs() -> int:
@@ -1409,10 +1510,12 @@ def phase_k6_k7(dev, scene, cam):
     """One run_triangle_field frame with every K6, K7 and cluster-engine
     call captured; each kernel call held against its plain version → (K6
     row, K7 row, the launches [(label, o, d, tmin, tmax, kwargs)]) for the
-    kernel table: the camera launch's. K7 also on adversarial tiles, and
-    its SASS instructions per test and registers."""
+    kernel table: the camera launch's. K6 and K7 also on adversarial
+    inputs, and their SASS instructions per test and registers."""
     for tile_rays in (128, 256):
+        _k6_adversarial(dev, tile_rays)
         _k7_adversarial(dev, tile_rays)
+    emit("k6_sass", **sass.report("cluster_cull"))
     emit("k7_sass", **sass.report("cluster_pair"))
     cfg = RenderConfig(**LARGE_SIMPLE)
     with warnings.catch_warnings(record=True) as caught, \
@@ -1552,12 +1655,19 @@ def phase_large_reference(dev):
 
 def phase_large(dev, scene, cam, profile_path=None, frames=2):
     """render_photon at run_combined's settings: the card-vs-CPU check at
-    32×32, a warm-up, `frames` timed frames, and one profiled frame (its
-    table written to profile_path when given)."""
+    32×32, a warm-up whose K2 call is captured and held against the plain
+    version (a "k2" line, launch "large"), `frames` timed frames, and one
+    profiled frame (its table written to profile_path when given) →
+    (launch counts, median frame seconds)."""
     ref_rel_l1 = phase_large_reference(dev)
     cfg = RenderConfig(**LARGE)
-    photon.render_photon(scene, cam, cfg, prng.PRNGKey(0, dev))
-    torch.cuda.synchronize()
+    with recording(rg, "rowspan_S") as k2_calls:
+        photon.render_photon(scene, cam, cfg, prng.PRNGKey(0, dev))
+        torch.cuda.synchronize()
+    if len(k2_calls) != 1:
+        raise AssertionError(f"large: {len(k2_calls)} K2 calls a frame")
+    _k2_case("large", list(k2_calls[0][0]), 5)
+    del k2_calls
     _reset_kernel_counts()
     torch.cuda.reset_peak_memory_stats()
     times = []

@@ -14,8 +14,9 @@ coherent camera and shadow launches (ops/intersect.py `_engine`):
      with zero rays to whole groups of 8 tiles of 128 rays (256 at ≥ 2^21
      rays);
   2. K6 (ops/cluster_kernels.py `cull_tiles`): every tile against every
-     cluster box → uint8 mask [n_tiles, C]; column 0 is then set, JAX's
-     seed pair of every tile;
+     cluster box → uint8 mask [n_tiles, C] (a tile whose rays all miss the
+     real clusters' hull skips them, which changes no byte); column 0 is
+     then set, JAX's seed pair of every tile;
   3. compaction: the first pair_budget·rounds set entries of the
      tile-major mask in ascending order — one `torch.nonzero`, JAX's
      packed pair list and its rounds in one;
@@ -155,17 +156,19 @@ def _intersect_clusters(clusters, o, d, tmin, tmax, pair_budget, sort_rays,
     tmin_p, tmax_p = pad(tmin).contiguous(), pad(tmax).contiguous()
     n_tiles = (n + n_pad) // tile_rays
 
-    mask = ck.cull_tiles(o_p, d_p, tmin_p, tmax_p, cmin, cmax, tile_rays)
+    # clusters from n_real on are padding (degenerate triangles that never
+    # hit, boxes (+inf, −inf)); K6 pre-culls against the real ones' hull
+    n_real = -(-clusters.n_tris // s)
+    mask = ck.cull_tiles(o_p, d_p, tmin_p, tmax_p, cmin, cmax, tile_rays,
+                         n_real)
     mask[:, 0] = 1  # the seed pair (tile, cluster 0)
     flat_pairs = torch.nonzero(mask.reshape(-1))[:, 0]  # tile·cp + cluster
     n_pairs = flat_pairs.shape[0]
     capacity = pair_budget * rounds
     kept = flat_pairs[:capacity]
     # tile t's kept pairs are the entries in [t·cp, (t+1)·cp), by ascending
-    # cluster; padding clusters (≥ n_real: degenerate triangles that never
-    # hit) close that run and are counted, not run: K7 takes [t·cp,
-    # t·cp + n_real)
-    n_real = -(-clusters.n_tris // s)
+    # cluster; padding clusters close that run and are counted, not run:
+    # K7 takes [t·cp, t·cp + n_real)
     starts = torch.arange(n_tiles, device=dev) * cp
     begin = torch.searchsorted(kept, starts).to(torch.int32)
     end = torch.searchsorted(kept, starts + n_real).to(torch.int32)

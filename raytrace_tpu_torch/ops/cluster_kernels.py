@@ -4,7 +4,8 @@ raytrace_tpu/ops/cluster_intersect.py).
 
   K6 `cull_tiles`  slab cull of 128- or 256-ray tiles against the cluster
                    boxes → uint8 [n_tiles, C], 1 where any ray of the tile
-                   crosses the box (csrc/cluster_cull.cu)
+                   crosses the box (csrc/cluster_cull.cu), with an exact
+                   scene-box pre-cull (`precull_plain`)
   K7 `pair_hits`   Möller–Trumbore of each tile's rays against the
                    triangles of the clusters of its kept pairs, the pairs
                    cut into work items (ops/work_items.py) → per-ray
@@ -62,17 +63,42 @@ def cull_tiles_plain(o, d, tmin, tmax, cmin, cmax, tile_rays: int):
     return out
 
 
-_CULL_SIGNATURES = {"cluster_cull": [ctypes.c_void_p] * 6
-                    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2}
+def precull_plain(o, d, tmin, tmax, box):
+    """The exact pre-cull of K6: rays [N] against the scene box `box` [2, 3]
+    (min row, max row), which holds every real cluster → bool [N], False
+    where the ray can set no byte of any real cluster. The cull's own slab
+    test on the box; without NaN every real cluster's tn, tf lie inside the
+    box's (rounding is monotone), so a hit needs tn ≤ tf, tf > tmin and
+    tn < tmax on the box; a NaN there (0·inf) means "may hit".
+    csrc/cluster_cull.cu skips a tile none of whose rays may hit."""
+    inv = 1.0 / torch.where(d == 0.0, 1e-30, d)
+    a = (box[0] - o) * inv
+    b = (box[1] - o) * inv
+    tn = torch.maximum(torch.maximum(torch.minimum(a[:, 0], b[:, 0]),
+                                     torch.minimum(a[:, 1], b[:, 1])),
+                       torch.minimum(a[:, 2], b[:, 2]))
+    tf = torch.minimum(torch.minimum(torch.maximum(a[:, 0], b[:, 0]),
+                                     torch.maximum(a[:, 1], b[:, 1])),
+                       torch.maximum(a[:, 2], b[:, 2]))
+    return torch.isnan(tn) | ((tn <= tf) & (tf > tmin) & (tn < tmax))
 
 
-def cull_tiles(o, d, tmin, tmax, cmin, cmax, tile_rays: int):
+_CULL_SIGNATURES = {"cluster_cull": [ctypes.c_void_p] * 7
+                    + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2}
+
+
+def cull_tiles(o, d, tmin, tmax, cmin, cmax, tile_rays: int,
+               n_real: int = 0):
     """Kernel K6. Rays in tile order: o, d [N, 3], tmin, tmax [N] (N a
     multiple of tile_rays, 128 or 256); cluster boxes cmin, cmax [C, 3] →
     uint8 [N / tile_rays, C], 1 where a ray of the tile crosses box c
     within its (tmin, tmax) segment (inv = 1 / d, 1e-30 where d is 0).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    Clusters 0 .. n_real − 1 are real, each box with min ≤ max (NaN
+    allowed): the kernel skips them for tiles whose rays `precull_plain`
+    drops against their hull, which changes no byte. Clusters from n_real
+    on are always tested; n_real 0 (the default) tests everything. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
     if o.device.type == "cpu":
         return cull_tiles_plain(o, d, tmin, tmax, cmin, cmax, tile_rays)
     n, n_clusters = o.shape[0], cmin.shape[0]
@@ -83,13 +109,18 @@ def cull_tiles(o, d, tmin, tmax, cmin, cmax, tile_rays: int):
         (o, f32, (n, 3)), (d, f32, (n, 3)), (tmin, f32, (n,)),
         (tmax, f32, (n,)), (cmin, f32, (n_clusters, 3)),
         (cmax, f32, (n_clusters, 3))])
+    n_real = min(max(int(n_real), 0), n_clusters)
+    # the real clusters' hull, the pre-cull's box (not read when n_real is 0)
+    box = (torch.stack([torch.amin(cmin[:n_real], dim=0),
+                        torch.amax(cmax[:n_real], dim=0)])
+           if n_real else cmin)
     lib = cuda_lib.load("cluster_cull", _CULL_SIGNATURES)
     out = torch.empty((n // tile_rays, n_clusters), dtype=torch.uint8,
                       device=o.device)
     p = cuda_lib.ptr
     err = lib.cluster_cull(p(o), p(d), p(tmin), p(tmax), p(cmin), p(cmax),
-                           n_clusters, n // tile_rays, tile_rays, p(out),
-                           cuda_lib.stream_ptr(o.device))
+                           p(box), n_clusters, n_real, n // tile_rays,
+                           tile_rays, p(out), cuda_lib.stream_ptr(o.device))
     cuda_lib.check(err, "cluster_cull")
     cull_tiles.launches += 1
     return out

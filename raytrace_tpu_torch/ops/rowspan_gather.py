@@ -11,8 +11,9 @@ and tiles not scanned completely return L = 0, M = 0 with covered = False,
 exactly as in the JAX function.
 
 `rowspan_S` is the kernel's wrapper: CUDA tensors launch
-csrc/rowspan_gather.cu (one block per tile walking its own job range) or
-raise; CPU tensors take `rowspan_S_plain`, which batches jobs as
+csrc/rowspan_gather.cu (one block per work item of at most J jobs of one
+tile, the items summed per tile in a fixed order) or raise; CPU tensors
+take `rowspan_S_plain`, which batches jobs as
 [B, 128, chunk] blocks and adds them into their tiles with `index_add_`.
 The TPU kernel ran the list in `rounds` launches because its job ids had to
 fit SMEM; one launch covers every round here, since S adds across rounds.
@@ -110,17 +111,19 @@ def tile_sums(tile_of_job, chunk_of_job, n_tiles: int, qpT, qr2, qnsT, pdata,
     return out.permute(1, 0, 2).reshape(4, n_tiles * TILE_Q)
 
 
-_SIGNATURES = {"rowspan_gather": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-               + [ctypes.c_void_p] * 6}
+_SIGNATURES = {"rowspan_gather_item_jobs": [],
+               "rowspan_gather": [ctypes.c_void_p] * 4 + [ctypes.c_int]
+               + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+               + [ctypes.c_void_p] * 7}
 
 
 def rowspan_S(pid, tile_begin, tile_end, n_chunks, qpT, qr2, qnsT, pdata):
     """Kernel K2 over the job list → [4, n_tiles·128] (see rowspan_S_plain).
 
     pid [jobs] int32 (tile·n_chunks + chunk, tile-major); tile_begin/
-    tile_end [n_tiles] int32 job ranges; qpT/qnsT [3, NQ], qr2 [NQ] f32;
-    pdata [n_chunks, 16, chunk] f32. CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
+    tile_end [n_tiles] int32 job ranges, disjoint within pid; qpT/qnsT
+    [3, NQ], qr2 [NQ] f32; pdata [n_chunks, 16, chunk] f32. CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
     if qpT.device.type == "cpu":
         return rowspan_S_plain(pid, tile_begin, tile_end, n_chunks, qpT, qr2,
                                qnsT, pdata)
@@ -133,14 +136,24 @@ def rowspan_S(pid, tile_begin, tile_end, n_chunks, qpT, qr2, qnsT, pdata):
         (qpT, torch.float32, (3, nq)), (qr2, torch.float32, (nq,)),
         (qnsT, torch.float32, (3, nq)),
         (pdata, torch.float32, (n_chunks, ROWS, chunk))])
-    if not 0 < chunk <= 1024:  # 10 staged rows must fit in 48 KB of smem
+    if not 0 < chunk <= 1024:  # the staged rows must fit in 48 KB of smem
         raise ValueError(f"rowspan_S: chunk {chunk} outside (0, 1024]")
     lib = cuda_lib.load("rowspan_gather", _SIGNATURES)
-    out = torch.empty((4, nq), dtype=torch.float32, device=qpT.device)
+    # each tile's jobs cut into work items of J jobs, one block per item,
+    # on a grid sized without a host sync: the ranges are disjoint in pid
+    item_jobs = lib.rowspan_gather_item_jobs()
+    slots = n_tiles + pid.shape[0] // item_jobs
+    item_tile, lo, hi, first, count = work_items(tile_begin, tile_end,
+                                                 item_jobs, slots)
+    dev = qpT.device
+    done = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
+    partial = torch.empty((slots, 4, TILE_Q), dtype=torch.float32, device=dev)
+    out = torch.zeros((4, nq), dtype=torch.float32, device=dev)
     p = cuda_lib.ptr
-    err = lib.rowspan_gather(p(pid), p(tile_begin), p(tile_end), n_tiles,
-                             n_chunks, chunk, p(qpT), p(qr2), p(qnsT),
-                             p(pdata), p(out), cuda_lib.stream_ptr(qpT.device))
+    err = lib.rowspan_gather(
+        p(pid), p(item_tile), p(lo), p(hi), slots, p(first), p(count),
+        p(done), n_tiles, n_chunks, chunk, p(qpT), p(qr2), p(qnsT), p(pdata),
+        p(partial), p(out), cuda_lib.stream_ptr(dev))
     cuda_lib.check(err, "rowspan_gather")
     rowspan_S.launches += 1
     return out

@@ -1,18 +1,20 @@
-"""Work-item sizes of K3 and K7 on the card: each kernel rebuilt with other
-values of its work-item constant, checked and timed on the inputs
+"""Work-item sizes of K2, K3 and K7 on the card: each kernel rebuilt with
+other values of its work-item constant, checked and timed on the inputs
 `chip_smoke.py` gives it.
 
     python -m raytrace_tpu_torch.utils.sweep
 
-J (`ITEM_JOBS`, csrc/rowspan_gather_bwd.cu) runs on the headline frame's
-gather jobs (the glass Cornell box at 512², 262,144 paths, key 0,
-chunk-major, a uniform cotangent of seed 3); P (`ITEM_PAIRS`,
-csrc/cluster_pair.cu) on the camera and shadow launches of one
-render_simple frame of triangle_field(1 << 22, 512). A value of 2^30 gives
-one item per chunk or tile. Each variant goes through the port's own
-wrapper with its library swapped in, is held against the plain version
-(K3: term counts equal and dα within 2·terms·2^-24; K7: (t, idx) equal)
-and timed by CUDA events, one JSON line each. Needs nvcc and a CUDA card.
+J (`ITEM_JOBS`, csrc/rowspan_gather.cu and csrc/rowspan_gather_bwd.cu) runs
+on the headline frame's gather jobs (the glass Cornell box at 512²,
+262,144 paths, key 0: tile-major for K2; chunk-major with a uniform
+cotangent of seed 3 for K3); P (`ITEM_PAIRS`, csrc/cluster_pair.cu) on the
+camera and shadow launches of one render_simple frame of
+triangle_field(1 << 22, 512). A value of 2^30 gives one item per tile or
+chunk. Each variant goes through the port's own wrapper with its library
+swapped in, is held against the plain version (K2: counts M equal and S
+within 2·M·2^-24; K3: term counts equal and dα within 2·terms·2^-24; K7:
+(t, idx) equal) and timed by CUDA events, one JSON line each. Needs nvcc
+and a CUDA card.
 """
 from __future__ import annotations
 
@@ -90,9 +92,9 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def k3_args(dev):
-    """The headline frame's chunk-major gather jobs and a cotangent, as
-    chip_smoke.py's headline_records, gather_jobs and phase_k3 make them."""
+def headline_jobs(dev) -> dict:
+    """The headline frame's tile-major gather jobs, as chip_smoke.py's
+    headline_records and gather_jobs make them."""
     cfg = RenderConfig(**HEADLINE)
     scene, cam = presets.cornell_box(dev, 512, ball="glass")
     keys = prng.split(prng.PRNGKey(0, dev), 3)
@@ -105,11 +107,16 @@ def k3_args(dev):
         radius2=r2, photon_count=torch.zeros_like(r2),
         flux=torch.zeros_like(rec.p), emitted=torch.zeros_like(r2))
     rounds, budget = photon.gather_capacity(cfg, photons.p.shape[0])
-    jobs = rg.rowspan_jobs(
+    return rg.rowspan_jobs(
         photons.p, photons.wi, photons.alpha, photons.valid,
         photon.gather_cell_size(rec, state), rec.p,
         torch.where(rec.hit, r2, 0.0), rec.ns, r_max=cfg.gather_r_max,
         rounds=rounds, job_budget=budget)
+
+
+def k3_args(jobs, dev):
+    """The headline jobs chunk-major and a cotangent, as chip_smoke.py's
+    phase_k3 makes them."""
     n_tiles = jobs["tile_begin"].shape[0]
     pid, begin, end = rg.chunk_major(jobs["pid"], jobs["n_valid"],
                                      jobs["n_chunks"], n_tiles)
@@ -141,8 +148,25 @@ def k7_calls(dev):
     return dict(zip(("camera", "shadow"), calls, strict=True))
 
 
-def sweep_k3(dev, libs) -> None:
-    args = k3_args(dev)
+def sweep_k2(jobs, libs) -> None:
+    args = [jobs[k] for k in ("pid", "tile_begin", "tile_end", "n_chunks",
+                              "qpT", "qr2", "qnsT", "pdata")]
+    want = rg.rowspan_S_plain(*args)
+    bound = 2.0 * 2.0 ** -24 * want[3] * want[:3].abs()
+    for j, lib in libs.items():
+        with swapped("rowspan_gather", lib):
+            got = rg.rowspan_S(*args)
+            ok = (torch.equal(got[3], want[3]) and not bool(
+                ((got[:3] - want[:3]).abs() > bound).any()))
+            if not ok:
+                raise AssertionError(f"K2 at J = {j} differs from the plain "
+                                     "version")
+            print(json.dumps(dict(kernel="K2", item_jobs=j, ms=cuda_ms(
+                lambda: rg.rowspan_S(*args), 20))), flush=True)
+
+
+def sweep_k3(jobs, dev, libs) -> None:
+    args = k3_args(jobs, dev)
     want = rg.rowspan_S_bwd_plain(*args)
     bound = 2.0 * 2.0 ** -24 * want[:, 3:4] * want[:, :3]
     for j, lib in libs.items():
@@ -176,15 +200,21 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("the sweep needs a CUDA device")
     dev = torch.device("cuda", 0)
-    with ThreadPoolExecutor(len(J_VALUES) + len(P_VALUES)) as pool:
+    with ThreadPoolExecutor(2 * len(J_VALUES) + len(P_VALUES)) as pool:
+        k2 = {j: pool.submit(variant, "rowspan_gather", rg._SIGNATURES,
+                             "ITEM_JOBS", j) for j in J_VALUES}
         k3 = {j: pool.submit(variant, "rowspan_gather_bwd",
                              rg._BWD_SIGNATURES, "ITEM_JOBS", j)
               for j in J_VALUES}
         k7 = {p: pool.submit(variant, "cluster_pair", ck._PAIR_SIGNATURES,
                              "ITEM_PAIRS", p) for p in P_VALUES}
+        k2 = {j: f.result() for j, f in k2.items()}
         k3 = {j: f.result() for j, f in k3.items()}
         k7 = {p: f.result() for p, f in k7.items()}
-    sweep_k3(dev, k3)
+    jobs = headline_jobs(dev)
+    sweep_k2(jobs, k2)
+    sweep_k3(jobs, dev, k3)
+    del jobs
     sweep_k7(dev, k7)
 
 
