@@ -7,6 +7,10 @@
                                             # frame, a large simple frame
                                             # and a large frame, written
                                             # to FILE*
+    python3 chip_smoke.py --parent DIR      # also K1 and K4 of the checkout
+                                            # at DIR, held bit for bit
+                                            # against this tree's and
+                                            # timed in turns with them
 
 Phases, one JSON result line each:
   1. device     the card's name and power limit; raises without CUDA
@@ -14,8 +18,16 @@ Phases, one JSON result line each:
                 raytrace_tpu_torch/csrc and g++ the host BVH builder, one
                 compiler process per library, all at once
   3. k1         K1 (closest hit) against its plain PyTorch version on
-                262,144 random rays: the Cornell triangles and a
-                4,096-triangle soup; hit flips are bounded
+                262,144 random rays: the Cornell triangles, a
+                4,096-triangle soup and a 511-triangle one (the top of
+                K1's range); hit flips bounded, equality bit for bit
+                counted, two launches equal; the kernel's device time (the
+                profiler's kernel records) beside the host's call time
+                (CUDA events over back-to-back wrapper calls), the host µs
+                of one intersect_triangles and one occluded_triangles call
+                on the Cornell triangles, the tests past the β gate and
+                both bounds; SASS instructions per test and registers
+                (k1_sass)
   4. k2         K2 (row-span gather) against its plain version on the
                 gather inputs of the full-size frame: the tiles' job counts
                 (busy, p50, p99, max), J and the work items and their
@@ -26,16 +38,29 @@ Phases, one JSON result line each:
                 work items and their scratch slots, two launches equal bit
                 for bit
   6. k4         K4 (dense small-map gather) against its plain version on the
-                gather inputs of the preview's first wave (2,048 paths)
+                gather inputs of the preview's first wave (2,048 paths),
+                a miss's radius 0 as the renderer passes it: M equal, S
+                within its rounding bound and equal bit for bit to the
+                sums in photon index order, two launches equal; the pair
+                tests left after the exact pre-cull and their share, also
+                with the misses' starting radii, and the warps holding a
+                miss; device time and host call time; both bounds; SASS
+                and registers (k4_sass). M equal and S bit for bit also
+                with the misses' starting radii (wide warp boxes) and on
+                the adversarial inputs of
+                tests/test_torch_dense_precull.py (k4_adversarial)
   7. k5         K5 (Morton-span gather) against its plain version on the
                 full-size frame's queries and a 2^16-path wave, the cell
                 the largest live radius
   8. reference  a 32×32 frame on the card (kernels) against the same frame
                 on the CPU (plain versions)
   9. main       render_photon on the 512×512 glass Cornell box with 262,144
-                photon paths (bench.py's headline settings): a warm-up,
-                then the median of 5 frames, with K1's and K2's launch
-                counts over those frames
+                photon paths (bench.py's headline settings): a warm-up
+                whose K1 calls are counted by route (closest hit with its
+                re-intersection, any-hit without), then the median of 5
+                frames, with K1's and K2's launch counts over those
+                frames, and one profiled frame's device busy time and
+                device operations
  10. grad_reference  loss_and_grad of a 32×32 frame on the card against the
                 same on the CPU
  11. grad       loss_and_grad at bench.py's run_grad settings (the headline
@@ -147,6 +172,8 @@ from raytrace_tpu_torch.scene import presets
 from raytrace_tpu_torch.scene.camera import generate_rays, pixel_samples
 from raytrace_tpu_torch.scene.scene import GLASS
 from raytrace_tpu_torch.utils import sass
+from raytrace_tpu_torch.utils.timing import (cuda_ms, device_records,
+                                             kernel_device_ms)
 
 SIZE = 512
 # bench.py:78-85, the frame users render through render_photon
@@ -259,20 +286,6 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of fn over iters launches, after one warm-up."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def bound(ops: float, nbytes: float) -> dict:
     """The least time the card could take: the larger of `ops` fp32
     operations at the fp32 peak and `nbytes` (each input read once, each
@@ -326,40 +339,152 @@ def phase_build() -> None:
     emit("build", seconds=secs, total_s=time.perf_counter() - t0)
 
 
-def _k1_case(label, o, d, v0, v1, v2, iters):
+def host_us(fn, iters: int) -> float:
+    """Host microseconds per call of fn: iters calls after a warm-up, one
+    synchronize at the end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / iters
+
+
+def in_turns(mine, parent, measure) -> dict:
+    """measure(fn) of this tree's fn, and of the parent's when given, in
+    turns (parent, this, this, parent) → {"": [this ×2], "parent_": [...]}."""
+    if parent is None:
+        return {"": [measure(mine), measure(mine)]}
+    p1, m1, m2, p2 = (measure(parent), measure(mine), measure(mine),
+                      measure(parent))
+    return {"": [m1, m2], "parent_": [p1, p2]}
+
+
+def load_parent(root: Path) -> dict:
+    """K1's and K4's wrapper modules of the checkout at `root`, each bound to
+    that checkout's cuda_lib, which builds its sources into its own
+    _build/ → {"tri_intersect": module, "dense_gather": module,
+    "cuda_lib": module}. `root` must lie inside this checkout (as
+    _archive/ does, which .gitignore lists), so that the build writes
+    nowhere else."""
+    here = Path(__file__).resolve().parent
+    root = root.resolve()
+    if not root.is_relative_to(here):
+        raise SystemExit(f"--parent {root}: not a directory inside {here}")
+
+    def module(name):
+        spec = importlib.util.spec_from_file_location(
+            f"parent_{name}", root / "raytrace_tpu_torch" / "ops" /
+            f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    lib = module("cuda_lib")
+    mods = {"cuda_lib": lib}
+    for name in ("tri_intersect", "dense_gather"):
+        mods[name] = module(name)
+        mods[name].cuda_lib = lib
+    return mods
+
+
+def _k1_gate(o, d, tmin, tmax, v0, v1, v2) -> tuple[int, int]:
+    """(tests of live 32-ray groups, (32-ray group, triangle) pairs past
+    the gate) of one K1 launch: a warp's slot holds 32 consecutive rays
+    (`_gate_groups` with the triangles as one row)."""
+    n, t = o.shape[0], v0.shape[0]
+    live = tmin < tmax
+    ray = torch.arange(n, device=o.device).view(-1, 32)
+    tv = torch.cat([v0.T, v1.T, v2.T])[None]  # [1, 9, T]
+    cl = torch.zeros(ray.shape[0], dtype=torch.int64, device=o.device)
+    gate_tests = int(live.view(-1, 32).any(1).sum()) * 32 * t
+    return gate_tests, _gate_groups(cl, ray, o, d, live, tv)
+
+
+def _k1_case(label, o, d, v0, v1, v2, iters, parent=None, tris=None):
+    """K1 on one batch against its plain version (flips bounded, and counted
+    bit for bit) and the parent's kernel when given (equal bit for bit);
+    device time by the profiler and host call time by CUDA events over
+    back-to-back wrapper calls, each in turns with the parent's; `tris`
+    (the scene's Triangles) adds the host µs of one intersect_triangles
+    and one occluded_triangles call → the kernel-table row."""
     n = o.shape[0]
     tmin = torch.full((n,), 1e-3, device=o.device)
     tmax = torch.full((n,), BIG, device=o.device)
     args = (o, d, tmin, tmax, v0, v1, v2)
     got = ti.closest_hit(*args)
+    again = ti.closest_hit(*args)
     want = ti.closest_hit_plain(*args)
     torch.cuda.synchronize()
+    bits = lambda a: (a[0].view(torch.int32), a[1])
+    same = lambda a, b: all(torch.equal(x, y) for x, y in zip(bits(a),
+                                                              bits(b)))
+    if not same(got, again):
+        raise AssertionError(f"K1 {label}: two launches differ")
     hit_k, hit_p = got[0] < BIG, want[0] < BIG
     agree = (hit_k == hit_p) & (~hit_k | (got[1] == want[1]))
     flips = int((~agree).sum())
     both = agree & hit_k
-    err_t = float((got[0][both] - want[0][both]).abs().max())
-    err_bg = max(float((got[k][both] - want[k][both]).abs().max())
-                 for k in (2, 3))
+    err = float((got[0][both] - want[0][both]).abs().max())
     if flips > K1_FLIP_FRAC * n:
         raise AssertionError(f"K1 {label}: {flips} of {n} rays flip")
     t_scale = float(want[0][both].abs().max())
-    if err_t > K1_RTOL * t_scale or err_bg > K1_RTOL:
-        raise AssertionError(f"K1 {label}: t differs by {err_t} (max t "
-                             f"{t_scale}), beta/gamma by {err_bg}")
-    err = max(err_t, err_bg)
-    ms = cuda_ms(lambda: ti.closest_hit(*args), iters)
+    if err > K1_RTOL * t_scale:
+        raise AssertionError(f"K1 {label}: t differs by {err} (max t "
+                             f"{t_scale})")
+    extra = {}
+    pti = None if parent is None else parent["tri_intersect"]
+    if pti is not None:
+        old = pti.closest_hit(*args)[:2]
+        torch.cuda.synchronize()
+        if not same(got, old):
+            raise AssertionError(f"K1 {label}: (t, idx) differ from the "
+                                 "parent kernel's")
+        extra["equal_to_parent_bit_for_bit"] = True
+    for key, ms in in_turns(
+            lambda: ti.closest_hit(*args),
+            None if pti is None else lambda: pti.closest_hit(*args),
+            lambda fn: kernel_device_ms(fn, "tri_closest_kernel",
+                                        iters)).items():
+        extra[f"{key}device_ms_runs"] = ms
+    for key, ms in in_turns(
+            lambda: ti.closest_hit(*args),
+            None if pti is None else lambda: pti.closest_hit(*args),
+            lambda fn: cuda_ms(fn, iters)).items():
+        extra[f"{key}host_call_ms_runs"] = ms
+    if tris is not None:
+        for name in ("intersect_triangles", "occluded_triangles"):
+            # the parent's any-hit was its intersect_triangles
+            theirs = (None if pti is None or not hasattr(pti, name) else
+                      lambda: getattr(pti, name)(tris, *args[:4]))
+            for key, us in in_turns(
+                    lambda: getattr(ti, name)(tris, *args[:4]), theirs,
+                    lambda fn: host_us(fn, 200)).items():
+                extra[f"{key}host_us_{name}_runs"] = us
     plain_ms = cuda_ms(lambda: ti.closest_hit_plain(*args), max(1, iters // 10))
     t = v0.shape[0]
-    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               **bound(n * t * K1_PAIR_OPS, n * (8 + 4) * 4 + t * 9 * 4),
-               library_ms=None)
+    gate_tests, tail = _k1_gate(*args)
+    nbytes = n * (8 + 2) * 4 + t * 9 * 4
+    full = bound(n * t * K1_PAIR_OPS, nbytes)
+    row = dict(max_abs_err=err, ms=statistics.median(extra["device_ms_runs"]),
+               host_call_ms=statistics.median(extra["host_call_ms_runs"]),
+               plain_ms=plain_ms,
+               **bound(K9_GATE_OPS * gate_tests + K9_TAIL_OPS * tail * 32,
+                       nbytes),
+               bound_all_tests_ms=full["bound_ms"], library_ms=None)
     emit("k1", case=label, rays=n, triangles=t, hits=int(hit_k.sum()),
-         flips=flips, **row)
+         flips=flips, equal_to_plain_bit_for_bit=same(got, want),
+         repeats_bit_for_bit=True, gate_tests=gate_tests,
+         tail_tests=tail * 32, **extra, **row)
     return row
 
 
-def phase_k1(dev, scene):
+def phase_k1(dev, scene, parent=None):
+    """K1 on 262,144 random rays from inside the box against the Cornell
+    triangles, a 4,096-triangle soup and a 511-triangle one (the builder's
+    BVH threshold − 1, the top of K1's range); its SASS instructions per
+    test and registers, and the parent's → the Cornell row."""
     g = torch.Generator(device=dev).manual_seed(1)
     rnd = lambda *s: torch.rand(*s, device=dev, generator=g)
     # rays from inside the box, every direction
@@ -369,15 +494,22 @@ def phase_k1(dev, scene):
                                                   generator=g), dim=1)
     tris = scene.tris
     res = _k1_case("cornell", o.contiguous(), d.contiguous(), tris.v0,
-                   tris.v1, tris.v2, iters=50)
-    # 4,096-triangle soup in [-1, 1]^3
-    t = 4096
-    v0 = rnd(t, 3) * 2 - 1
-    v1 = v0 + 0.15 * torch.randn(t, 3, device=dev, generator=g)
-    v2 = v0 + 0.15 * torch.randn(t, 3, device=dev, generator=g)
-    o2 = rnd(N_RAYS, 3) * 3 - 1.5
-    _k1_case("soup4096", o2.contiguous(), d, v0.contiguous(),
-             v1.contiguous(), v2.contiguous(), iters=10)
+                   tris.v1, tris.v2, iters=50, parent=parent, tris=tris)
+    # triangle soups in [-1, 1]^3; the 511-triangle one drawn after the
+    # 4,096-triangle one, so that the latter's inputs stay as they were
+    o2 = None
+    for t, iters in ((4096, 10), (511, 10)):
+        v0 = rnd(t, 3) * 2 - 1
+        v1 = v0 + 0.15 * torch.randn(t, 3, device=dev, generator=g)
+        v2 = v0 + 0.15 * torch.randn(t, 3, device=dev, generator=g)
+        if o2 is None:
+            o2 = (rnd(N_RAYS, 3) * 3 - 1.5).contiguous()
+        _k1_case(f"soup{t}", o2, d, v0.contiguous(), v1.contiguous(),
+                 v2.contiguous(), iters=iters, parent=parent)
+    emit("k1_sass", **sass.report("tri_intersect"))
+    if parent is not None:
+        emit("k1_sass", parent=True, **sass.report(
+            "tri_intersect", parent["cuda_lib"].build("tri_intersect")))
     return res  # the main path's shape: camera-size batch, 10 triangles
 
 
@@ -531,29 +663,162 @@ def _items(begin, end, size) -> int:
     return int(work_items(begin, end, size, 0)[4].sum())
 
 
-def phase_k4(dev, scene, cfg, rec, r2, k_photon):
+def ordered_S(q_p, radius2, q_ns, photons_p, photons_alpha, photons_wi,
+              photons_valid, n_valid):
+    """K4's function with each query's sums taken as K4 takes them: one add
+    per counted photon, in photon index order (the order of the parent
+    kernel, which tested every pair, and of the pre-culled one, whose
+    skipped pairs add nothing) → [4, N], for an equality bit for bit."""
+    out = torch.zeros((4, q_p.shape[0]), dtype=torch.float32,
+                      device=q_p.device)
+    for k in range(int(n_valid)):
+        dx = q_p[:, 0] - photons_p[k, 0]
+        dy = q_p[:, 1] - photons_p[k, 1]
+        dz = q_p[:, 2] - photons_p[k, 2]
+        ok = ((dx * dx + dy * dy + dz * dz) < radius2) & photons_valid[k]
+        w = torch.abs(q_ns[:, 0] * photons_wi[k, 0]
+                      + q_ns[:, 1] * photons_wi[k, 1]
+                      + q_ns[:, 2] * photons_wi[k, 2])
+        for c in range(3):
+            out[c] = torch.where(ok, out[c] + w * photons_alpha[k, c],
+                                 out[c])
+        out[3] = torch.where(ok, out[3] + 1.0, out[3])
+    return out
+
+
+def precull_counts(q_p, radius2, pp, pv, n_valid, hit) -> dict:
+    """The pair tests K4's pre-cull leaves (`precull_plain`), their share,
+    and the warps that hold a miss with their share of those tests."""
+    keep = dg.precull_plain(q_p, radius2, pp, pv, n_valid)
+    n = q_p.shape[0]
+    size = torch.full((keep.shape[0],), dg.GROUP, device=q_p.device)
+    size[-1] = n - dg.GROUP * (keep.shape[0] - 1)
+    tests = keep.sum(1) * size
+    miss = torch.nn.functional.pad(~hit, (0, -n % dg.GROUP)).view(
+        -1, dg.GROUP).any(1)
+    left = int(tests.sum())
+    return dict(tests_after_precull=left,
+                tests_after_precull_share=left / (n * int(n_valid)),
+                warps=keep.shape[0], warps_with_a_miss=int(miss.sum()),
+                miss_warps_share_of_tests=int(tests[miss].sum())
+                / max(left, 1))
+
+
+def _k4_exact(what: str, args) -> torch.Tensor:
+    """K4 on args: counts M equal to the plain version's and the output
+    equal bit for bit to `ordered_S`, the sums in photon index order → the
+    plain version's output."""
+    got = dg.dense_S(*args)
+    want = dg.dense_S_plain(*args)
+    ordered = ordered_S(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got[3], want[3]):
+        raise AssertionError(f"K4 {what}: photon counts M differ from the "
+                             "plain version")
+    if not torch.equal(got.view(torch.int32), ordered.view(torch.int32)):
+        raise AssertionError(f"K4 {what}: S or M differ bit for bit from "
+                             "the sums in photon index order")
+    return want
+
+
+def _k4_adversarial(dev) -> None:
+    """K4, with its pre-cull, on the inputs tests/test_torch_dense_precull.py
+    builds: photons one ulp inside and outside the queries' reach, dist²
+    exactly r², NaN and infinite photon and query positions, NaN, zero and
+    negative r², invalid photons, 45 queries (not a multiple of a warp),
+    one 4.0 radius among small ones, and a random patch with two chunks of
+    photons. One row per case: the pairs the cull leaves and those that
+    count."""
+    path = Path(__file__).resolve().parent / "tests" / \
+        "test_torch_dense_precull.py"
+    spec = importlib.util.spec_from_file_location("k4_cases", path)
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    for name in cases.CASES:
+        args = cases.inputs(name, dev)
+        want = _k4_exact(name, args)
+        q, r2, _, p, _, _, valid, n_valid = args
+        keep = dg.precull_plain(q, r2, p, valid, n_valid)
+        emit("k4_adversarial", case=name, queries=q.shape[0],
+             photons=p.shape[0], pair_tests=q.shape[0] * p.shape[0],
+             tests_after_precull=int(keep.sum()) * dg.GROUP,
+             pairs_counted=float(want[3].sum()), counts_equal_to_plain=True,
+             equal_to_ordered_bit_for_bit=True)
+
+
+def phase_k4(dev, scene, cfg, rec, r2, k_photon, parent=None):
     """K4 on the gather inputs of the preview's first wave: the full-size
-    frame's queries with their unmasked starting radii (as the renderer
-    passes them) against a compacted 2,048-path map."""
+    frame's queries with their starting radii, a miss's 0 (as the renderer
+    passes them), against a compacted 2,048-path map. Counts M equal to the
+    plain version's, S within its rounding bound, and S equal bit for bit
+    to `ordered_S` (the kernel's order) and to the parent kernel's when
+    given; the same with the misses' starting radii (wide warp boxes), and
+    on the adversarial cases of tests/test_torch_dense_precull.py
+    (k4_adversarial rows); the pair tests left after the exact pre-cull,
+    with and without the misses' radii; both bounds; SASS and
+    registers."""
     pcfg = RenderConfig(**PREVIEW)
     photons = photon.trace_photons(scene, pcfg, k_photon, 0)
     pp, pa, pw, pv, n_valid = dg.compact_photons(photons)
-    args = (rec.p.contiguous(), r2.contiguous(), rec.ns.contiguous(), pp, pa,
-            pw, pv, n_valid)
+    unmasked_args = (rec.p.contiguous(), r2.contiguous(),
+                     rec.ns.contiguous(), pp, pa, pw, pv, n_valid)
+    _k4_exact("with the misses' starting radii", unmasked_args)
+    unmasked = dict(precull_counts(rec.p, r2, pp, pv, n_valid, rec.hit),
+                    counts_equal_to_plain=True,
+                    equal_to_ordered_bit_for_bit=True)
+    _k4_adversarial(dev)
+    live_r2 = torch.where(rec.hit, r2, 0.0).contiguous()
+    args = (rec.p.contiguous(), live_r2, rec.ns.contiguous(), pp, pa, pw,
+            pv, n_valid)
     got = dg.dense_S(*args)
+    again = dg.dense_S(*args)
     want = dg.dense_S_plain(*args)
+    ordered = ordered_S(*args)
     torch.cuda.synchronize()
     err, ulps = flux_check("K4", got, want)
-    ms = cuda_ms(lambda: dg.dense_S(*args), 20)
+    bits = lambda a: a.view(torch.int32)
+    if not torch.equal(bits(got), bits(again)):
+        raise AssertionError("K4: two launches on the same inputs differ")
+    if not torch.equal(bits(got), bits(ordered)):
+        raise AssertionError("K4: S or M differ bit for bit from the sums "
+                             "in photon index order")
+    extra = {}
+    pdg = None if parent is None else parent["dense_gather"]
+    if pdg is not None:
+        if not torch.equal(bits(got), bits(pdg.dense_S(*args))):
+            raise AssertionError("K4: output differs from the parent "
+                                 "kernel's")
+        extra["equal_to_parent_bit_for_bit"] = True
+    for what, measure in (
+            ("device_ms", lambda fn: kernel_device_ms(
+                fn, "dense_gather_kernel", 20)),
+            ("host_call_ms", lambda fn: cuda_ms(fn, 20))):
+        for key, ms in in_turns(
+                lambda: dg.dense_S(*args),
+                None if pdg is None else lambda: pdg.dense_S(*args),
+                measure).items():
+            extra[f"{key}{what}_runs"] = ms
     plain_ms = cuda_ms(lambda: dg.dense_S_plain(*args), 2)
+    counts = precull_counts(*args[:2], pp, pv, n_valid, rec.hit)
     n, nv = rec.p.shape[0], int(n_valid)
-    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               **bound(gather_ops(n * nv, float(want[3].sum())),
-                       n * (7 + 4) * 4 + nv * (9 * 4 + 1) + 4),
-               library_ms=None)
+    hits = float(want[3].sum())
+    nbytes = n * (7 + 4) * 4 + nv * (9 * 4 + 1) + 4
+    full = bound(gather_ops(n * nv, hits), nbytes)
+    row = dict(max_abs_err=err, ms=statistics.median(extra["device_ms_runs"]),
+               host_call_ms=statistics.median(extra["host_call_ms_runs"]),
+               plain_ms=plain_ms,
+               **bound(gather_ops(counts["tests_after_precull"], hits),
+                       nbytes),
+               bound_all_tests_ms=full["bound_ms"], library_ms=None)
     emit("k4", queries=n, slots=photons.p.shape[0], n_valid=nv,
-         pair_tests=n * nv, max_flux=float(want[:3].abs().max()),
-         max_err_over_M_ulp=ulps, **row)
+         pair_tests=n * nv, pairs_counted=hits, **counts,
+         unmasked_radii=unmasked, max_flux=float(want[:3].abs().max()),
+         max_err_over_M_ulp=ulps, repeats_bit_for_bit=True,
+         equal_to_ordered_bit_for_bit=True, **extra, **row)
+    emit("k4_sass", **sass.report("dense_gather"))
+    if parent is not None:
+        emit("k4_sass", parent=True, **sass.report(
+            "dense_gather", parent["cuda_lib"].build("dense_gather")))
     return row
 
 
@@ -626,8 +891,17 @@ def phase_reference(dev):
 
 
 def phase_main(dev, scene, cam, cfg, frames=5):
-    img = photon.render_photon(scene, cam, cfg, prng.PRNGKey(0, dev))
-    torch.cuda.synchronize()  # warm-up: kernels loaded, allocator primed
+    """The headline frame: a warm-up whose K1 calls are counted by route
+    (closest hit, re-intersected, and any-hit, not), the median of
+    `frames` frames with K1's and K2's launches, and one profiled frame's
+    device busy time and device operations."""
+    with recording(ti, "intersect_triangles") as closest, \
+            recording(ti, "occluded_triangles") as any_hit, \
+            recording(ti, "reintersect_winner") as reintersected:
+        img = photon.render_photon(scene, cam, cfg, prng.PRNGKey(0, dev))
+        torch.cuda.synchronize()  # warm-up: kernels loaded, allocator primed
+    k1_calls = dict(closest=len(closest), any_hit=len(any_hit),
+                    reintersections=len(reintersected))
     ti.closest_hit.launches = 0
     rg.rowspan_S.launches = 0
     times = []
@@ -647,7 +921,11 @@ def phase_main(dev, scene, cam, cfg, frames=5):
     if min(launches.values()) <= 0:
         raise AssertionError(f"main path skipped a kernel: {launches}")
     frame_s = statistics.median(times)
+    busy_s, _, _, device_ops = profiled(lambda: photon.render_photon(
+        scene, cam, cfg, prng.PRNGKey(frames + 1, dev)))
     emit("main", size=SIZE, photon_paths=cfg.photon_paths, frames=frames,
+         k1_calls_per_frame=k1_calls, profiled_frame=dict(
+             device_busy_s=busy_s, device_ops=device_ops),
          frame_s=times, frame_s_median=frame_s,
          rays_per_s=SIZE * SIZE * cfg.spp / frame_s,
          photons_per_s=cfg.photon_paths / frame_s,
@@ -1691,7 +1969,7 @@ def phase_large(dev, scene, cam, profile_path=None, frames=2):
     if not float(img.mean()) > 0.0 or valid <= 0:
         raise AssertionError("large path: black image or no valid photons")
     frame_s = statistics.median(times)
-    busy_s, by_kernel, table = profiled(lambda: photon.render_photon(
+    busy_s, by_kernel, table, _ = profiled(lambda: photon.render_photon(
         scene, cam, cfg, prng.PRNGKey(9, dev)))
     if profile_path:
         with open(profile_path, "w") as f:
@@ -1717,8 +1995,8 @@ def phase_large(dev, scene, cam, profile_path=None, frames=2):
 
 def profiled(fn):
     """fn() once under torch.profiler → (device busy seconds, device ms by
-    kernel name, the key_averages table)."""
-    from torch.autograd import DeviceType
+    kernel name, the key_averages table, the count of device
+    operations)."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -1726,22 +2004,22 @@ def profiled(fn):
     with profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
+    records = device_records(prof)
     by_kernel = {}  # by the kernel's name without its argument list
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.split("(")[0]
-            by_kernel[name] = by_kernel.get(name, 0.0) + e.device_time_total
+    for name, us in records:
+        by_kernel[name] = by_kernel.get(name, 0.0) + us
+    ops = len(records)
     table = prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=60)
     return (sum(by_kernel.values()) / 1e6,
-            {k: v / 1e3 for k, v in by_kernel.items()}, table)
+            {k: v / 1e3 for k, v in by_kernel.items()}, table, ops)
 
 
 def profile_step(phase: str, fn, wall_s: float, path: str) -> None:
     """fn() once under torch.profiler: device time by kernel, written to
     `path`, and the device's busy share of wall_s, the unprofiled median of
     the same step (the profiler's own overhead inflates its wall time)."""
-    busy_s, _, table = profiled(fn)
+    busy_s, _, table, _ = profiled(fn)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
         f.write(table)
@@ -1758,6 +2036,10 @@ def main() -> None:
                          "simple frame (FILE.simple), one large simple "
                          "frame (FILE.large_simple) and one large frame "
                          "(FILE.large)")
+    ap.add_argument("--parent", metavar="DIR", type=Path,
+                    help="a checkout of the parent tree: its K1 and K4 are "
+                         "built from DIR, held bit for bit against this "
+                         "tree's, and timed in turns with them, SASS too")
     args = ap.parse_args()
     # the kernels must be built from this checkout's sources, not from a
     # copy of the package installed elsewhere
@@ -1775,15 +2057,16 @@ def main() -> None:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     phase_build()
+    parent = None if args.parent is None else load_parent(args.parent)
     cfg = RenderConfig(**BENCH)
     scene, cam = presets.cornell_box(dev, SIZE, ball="glass")
-    k1 = phase_k1(dev, scene)
+    k1 = phase_k1(dev, scene, parent)
     rec, r2, k_photon = headline_records(dev, scene, cam, cfg)
     jobs, queries, photons = gather_jobs(scene, cfg, rec, r2, k_photon)
     k2 = phase_k2(jobs, queries, photons)
     k3 = phase_k3(dev, jobs)
     del jobs
-    k4 = phase_k4(dev, scene, cfg, rec, r2, k_photon)
+    k4 = phase_k4(dev, scene, cfg, rec, r2, k_photon, parent)
     k5, k5_launches = phase_k5(scene, cfg, rec, r2, k_photon)
     del rec, r2
     phase_reference(dev)

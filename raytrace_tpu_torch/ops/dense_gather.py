@@ -8,11 +8,13 @@ valid prefix, and every query is tested against every photon of that prefix
 — exact, with no job budget, in O(queries × valid photons).
 
 `dense_S` is the kernel's wrapper: CUDA tensors launch csrc/dense_gather.cu
-(one thread per query, the valid prefix staged through shared memory) or
-raise; CPU tensors take `dense_S_plain`. Both form every term as the TPU
-kernel does, element by element, `|n_s·wi|·α` per channel, and differ only
-in the order of the sums. kd/π multiplies once, outside, on the sums (the
-TPU kernel multiplied each chunk's partial sum).
+(one thread per query, the valid prefix staged through shared memory, each
+warp's photons pre-culled against its queries' box) or raise; CPU tensors
+take `dense_S_plain`. Both form every term as the TPU kernel does, element
+by element, `|n_s·wi|·α` per channel, and differ only in the order of the
+sums. kd/π multiplies once, outside, on the sums (the TPU kernel
+multiplied each chunk's partial sum). `precull_plain` is the kernel's
+pre-cull as a predicate: the photons each warp keeps.
 """
 from __future__ import annotations
 
@@ -25,6 +27,9 @@ from raytrace_tpu_torch.ops import cuda_lib
 from raytrace_tpu_torch.ops.photon_grid import PhotonMap
 
 _PAIRS_PER_STEP = 1 << 22  # plain version: queries × photons per batch
+# queries that share one pre-cull box: a warp of the kernel, 32
+# consecutive queries (csrc/dense_gather.cu)
+GROUP = 32
 
 
 def compact_photons(photons: PhotonMap):
@@ -35,6 +40,35 @@ def compact_photons(photons: PhotonMap):
     order = torch.argsort((~photons.valid).to(torch.int32), stable=True)
     return (photons.p[order], photons.alpha[order], photons.wi[order],
             photons.valid[order], photons.valid.sum().to(torch.int32))
+
+
+def precull_plain(q_p, radius2, photons_p, photons_valid,
+                  n_valid) -> Tensor:
+    """K4's pre-cull → keep [ceil(N / GROUP), n_valid] bool: the photons of
+    the valid prefix that each group of GROUP consecutive queries tests.
+
+    A group's box spans its queries with r2 > 0, NaN coordinates ignored,
+    and r2max is their largest r2 (0 for none). Per photon and axis the gap
+    g = qmin − p where p < qmin, p − qmax where p > qmax, else 0, and
+    G = (gx² + gy²) + gz², each rounded as dist2 is. Rounding is monotone,
+    so dist2 ≥ G for every query of the group: a photon with G ≥ r2max, or
+    an invalid one, counts for none of them and is dropped; a NaN G is
+    kept."""
+    n, nv = q_p.shape[0], int(n_valid)
+    pad = -n % GROUP
+    live = torch.nn.functional.pad(radius2 > 0.0, (0, pad)).view(-1, GROUP)
+    q = torch.nn.functional.pad(q_p, (0, 0, 0, pad)).view(-1, GROUP, 3)
+    r2 = torch.nn.functional.pad(radius2, (0, pad)).view(-1, GROUP)
+    use = live[..., None] & ~torch.isnan(q)
+    inf = torch.tensor(float("inf"), device=q_p.device)
+    lo = torch.where(use, q, inf).amin(1)[:, None, :]  # [G, 1, 3]
+    hi = torch.where(use, q, -inf).amax(1)[:, None, :]
+    r2max = torch.where(live, r2, 0.0).amax(1)[:, None]
+    p = photons_p[:nv][None]  # [1, nv, 3]
+    g = torch.where(p < lo, lo - p, torch.where(p > hi, p - hi, 0.0))
+    gg = g * g
+    big = gg[..., 0] + gg[..., 1] + gg[..., 2]
+    return ~(big >= r2max) & photons_valid[None, :nv]
 
 
 def dense_S_plain(q_p, radius2, q_ns, photons_p, photons_alpha, photons_wi,

@@ -343,9 +343,8 @@ def _occluded_triangles(scene: Scene, o, d, tmin, tmax, coherent: bool,
     if scene.bvh is not None:
         return bvh_ops.occluded_triangles_bvh(scene.bvh, scene.tris, o, d,
                                               tmin, tmax), 0
-    t, _, _, _ = tri_intersect.intersect_triangles(scene.tris, o, d, tmin,
-                                                   tmax)
-    return t < BIG, 0
+    return tri_intersect.occluded_triangles(scene.tris, o, d, tmin,
+                                            tmax), 0
 
 
 # ---------------------------------------------------------------------------

@@ -322,10 +322,13 @@ def gathering_pass(scene: Scene, rec: common.CameraRecords,
         overflow = torch.zeros((), dtype=torch.int64, device=m.device)
         covered = torch.ones_like(rec.hit)
     elif not config.differentiable and n_slots < DENSE_GATHER_SLOTS:
-        # misses need no zero radius here: their M is masked below
+        # a miss's M is masked below, so its radius may be 0 here; its
+        # starting radius (initial_radius2, at p = 0) would widen K4's
+        # pre-cull box for its warp to most of the scene
         pp, pa, pw, pv, n_valid = compact_photons(photons)
-        idl, m = gather_radius_dense_tiles(pp, pa, pw, pv, n_valid, rec.p,
-                                           state.radius2, rec.ns, kd_over_pi)
+        idl, m = gather_radius_dense_tiles(
+            pp, pa, pw, pv, n_valid, rec.p,
+            torch.where(rec.hit, state.radius2, 0.0), rec.ns, kd_over_pi)
         overflow = torch.zeros((), dtype=torch.int64, device=m.device)
         covered = torch.ones_like(rec.hit)
     else:

@@ -10,8 +10,10 @@ per test) and instructions per test; and the registers a thread of the
 kernel holds (`cuobjdump -res-usage`). A marker occurs a fixed number of
 times per test in every version of a kernel: FMUL for the ray-box tests
 (6: one product per slab plane), MUFU.RCP for the ray-triangle tests (1:
-the reciprocal of det). Needs nvcc and cuobjdump, so it runs where the card
-is; a loop the compiler unrolled counts all its copies.
+the reciprocal of det), FMUL for the gather's pair test (9: dist2's three
+squares, the three products of n_s·wi and the three weights into S). Needs
+nvcc and cuobjdump, so it runs where the card is; a loop the compiler
+unrolled counts all its copies.
 """
 from __future__ import annotations
 
@@ -25,7 +27,9 @@ from pathlib import Path
 from raytrace_tpu_torch.ops import cuda_lib
 
 # kernel → (its __global__ function, marker opcode, markers per test)
-KERNELS = {"epoch_cull": ("epoch_cull_kernel", "FMUL", 6),
+KERNELS = {"tri_intersect": ("tri_closest_kernel", "MUFU.RCP", 1),
+           "dense_gather": ("dense_gather_kernel", "FMUL", 9),
+           "epoch_cull": ("epoch_cull_kernel", "FMUL", 6),
            "epoch_mt": ("epoch_mt_kernel", "MUFU.RCP", 1),
            "cluster_cull": ("cluster_cull_kernel", "FMUL", 6),
            "cluster_pair": ("cluster_pair_kernel", "MUFU.RCP", 1)}

@@ -33,6 +33,7 @@ from raytrace_tpu_torch.ops import rowspan_gather as rg
 from raytrace_tpu_torch.renderers import common, photon, simple
 from raytrace_tpu_torch.scene import presets
 from raytrace_tpu_torch.scene.camera import generate_rays, pixel_samples
+from raytrace_tpu_torch.utils.timing import cuda_ms
 
 J_VALUES = (8, 16, 32, 64, 1 << 30)
 P_VALUES = (4, 8, 16, 32, 64, 1 << 30)
@@ -76,20 +77,6 @@ def swapped(name: str, lib):
             cuda_lib._loaded.pop(name)
         else:
             cuda_lib._loaded[name] = old
-
-
-def cuda_ms(fn, iters: int) -> float:
-    """Mean device time of fn over iters launches, after one warm-up."""
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def headline_jobs(dev) -> dict:

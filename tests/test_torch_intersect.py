@@ -8,6 +8,8 @@ allclose. Flips come from grazing hits on shared edges, where XLA and
 PyTorch round the same Möller–Trumbore terms differently; they are never
 hidden by a wider tolerance.
 """
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -88,17 +90,43 @@ def test_k1_plain_matches_pallas_kernel_and_scan(seed):
     class _Scene:
         tris = jt
 
-    s_t, s_i, s_b, s_g = j_isect.intersect_triangles(_Scene, J(o), J(d),
-                                                     J(tmin), J(tmax))
-    k_t, k_i, k_b, k_g = p_tri.closest_hit_plain(
-        t(o), t(d), t(tmin), t(tmax), t(v0), t(v1), t(v2))
+    s_t, s_i, _, _ = j_isect.intersect_triangles(_Scene, J(o), J(d),
+                                                 J(tmin), J(tmax))
+    k_t, k_i = p_tri.closest_hit_plain(t(o), t(d), t(tmin), t(tmax), t(v0),
+                                       t(v1), t(v2))
     ok = _agree(n(s_i), n(s_t), n(k_i), n(k_t))
     assert (~ok).sum() <= _flip_bound(len(o))
     miss = n(k_t) >= BIG
-    assert (n(k_i)[miss] == 0).all() and (n(k_b)[miss] == 0).all()
-    for a, b in ((k_t, s_t), (k_b, s_b), (k_g, s_g)):
-        np.testing.assert_allclose(n(a)[ok & ~miss], n(b)[ok & ~miss],
-                                   rtol=RTOL, atol=ATOL)
+    assert (n(k_i)[miss] == 0).all() and (n(k_t)[miss] == BIG).all()
+    np.testing.assert_allclose(n(k_t)[ok & ~miss], n(s_t)[ok & ~miss],
+                               rtol=RTOL, atol=ATOL)
+    # the kernel's (t, idx) is the wrapper's winner; its t is the
+    # re-intersected one's up to rounding
+    np.testing.assert_array_equal(n(got[1])[~miss], n(k_i)[~miss])
+    np.testing.assert_allclose(n(got[0])[~miss], n(k_t)[~miss], rtol=RTOL,
+                               atol=ATOL)
+    assert (n(got[0])[miss] == BIG).all()
+
+
+def test_k1_plain_matches_pallas_kernel_at_511_triangles():
+    """The top of K1's range: 511 triangles (the builder's BVH threshold −
+    1), one 512-triangle chunk of the Pallas kernel, a few hundred rays."""
+    o, d, tmin, tmax, v0, v1, v2 = _soup(11, n_rays=400, n_tris=511)
+    jt, pt = _tris_pair(v0, v1, v2)
+    J = jnp.asarray
+    want = j_pallas.intersect_triangles_pallas(jt, J(o), J(d), J(tmin),
+                                               J(tmax), interpret=True)
+    k_t, k_i = p_tri.closest_hit_plain(t(o), t(d), t(tmin), t(tmax), t(v0),
+                                       t(v1), t(v2))
+    ok = _agree(n(want[1]), n(want[0]), n(k_i), n(k_t))
+    assert (~ok).sum() <= _flip_bound(len(o))
+    hit = ok & (n(k_t) < BIG)
+    assert hit.sum() > 100
+    np.testing.assert_allclose(n(k_t)[hit], n(want[0])[hit], rtol=RTOL,
+                               atol=ATOL)
+    got = p_tri.intersect_triangles(pt, t(o), t(d), t(tmin), t(tmax))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(n(a)[ok], n(b)[ok], rtol=RTOL, atol=ATOL)
 
 
 def test_k1_tie_keeps_lowest_index():
@@ -110,8 +138,8 @@ def test_k1_tie_keeps_lowest_index():
     o = np.zeros((4, 3), np.float32)
     d = np.tile(np.array([[0, 0, 1]], np.float32), (4, 1))
     big = np.full(4, BIG, np.float32)
-    tt, idx, _, _ = p_tri.closest_hit_plain(t(o), t(d), t(big * 0), t(big),
-                                            t(v0), t(v1), t(v2))
+    tt, idx = p_tri.closest_hit_plain(t(o), t(d), t(big * 0), t(big), t(v0),
+                                      t(v1), t(v2))
     np.testing.assert_array_equal(n(idx), 0)
     np.testing.assert_allclose(n(tt), 1.0)
 
@@ -218,3 +246,45 @@ def test_k1_wrapper_takes_plain_version_on_cpu():
     for a, b in zip(p_tri.closest_hit(*args), p_tri.closest_hit_plain(*args)):
         np.testing.assert_array_equal(n(a), n(b))
     assert p_tri.closest_hit.launches == before  # no kernel on CPU tensors
+
+
+@pytest.mark.parametrize("case", ["cornell_shadow", "soup"])
+def test_occluded_triangles_takes_the_kernel_t(case):
+    """The any-hit query on the K1 route reads the kernel's t and does not
+    re-intersect the winner: the same mask as the re-intersected
+    `t < BIG`, and as JAX's on this route,
+    `intersect_triangles_pallas(..., interpret=True)[0] < BIG`."""
+    J = jnp.asarray
+    if case == "soup":
+        o, d, lo, hi, v0, v1, v2 = _soup(3)
+        jt, pt = _tris_pair(v0, v1, v2)
+        scene = SimpleNamespace(tris=pt, clusters=None, bvh=None)
+    else:
+        # shadow rays from the camera's hits: toward the ceiling light
+        # (which no wall blocks) and toward points around the box, which
+        # the walls block
+        js, co, cd = _cornell_rays()
+        m = len(co)
+        jh = j_isect.intersect(js, J(co), J(cd),
+                               J(np.full(m, 1e-3, np.float32)),
+                               J(np.full(m, BIG, np.float32)))
+        o = np.asarray(jh.p)
+        rng = np.random.default_rng(6)
+        target = np.where(
+            (np.arange(m) % 2 == 0)[:, None],
+            rng.uniform([-0.5, 0.5, 1.9], [0.5, 1.5, 1.99], (m, 3)),
+            rng.uniform([-3.0, -2.0, -1.0], [3.0, 4.0, 3.0], (m, 3)))
+        d = (target - o).astype(np.float32)
+        lo = np.full(m, 1e-3, np.float32)
+        hi = np.full(m, 1 - 1e-3, np.float32)
+        scene = port_scene(js)
+        jt = js.tris
+    args = [t(x) for x in (o, d, lo, hi)]
+    occ, overflow = p_isect._occluded_triangles(scene, *args, False, 1.0)
+    assert overflow == 0
+    before = p_tri.intersect_triangles(scene.tris, *args)[0] < BIG
+    np.testing.assert_array_equal(n(occ), n(before))
+    want = j_pallas.intersect_triangles_pallas(
+        jt, *(J(x) for x in (o, d, lo, hi)), interpret=True)[0] < BIG
+    np.testing.assert_array_equal(n(occ), n(want))
+    assert 0 < n(occ).sum() < len(o)

@@ -2,8 +2,11 @@
 `cuobjdump -sass` text: the innermost loop with the most marker
 instructions, its length and its instructions per test. Building and
 disassembling a kernel needs the CUDA toolkit; the parsing does not."""
+import re
+
 import pytest
 
+from raytrace_tpu_torch.ops import cuda_lib
 from raytrace_tpu_torch.utils import sass
 
 
@@ -69,3 +72,13 @@ def test_registers_reads_the_function_of_res_usage():
     assert sass.registers(text, "other_kernel") == 40
     with pytest.raises(RuntimeError, match="no resource usage for epoch"):
         sass.registers(text, "epoch_mt_kernel")
+
+
+@pytest.mark.parametrize("name", sorted(sass.KERNELS))
+def test_each_kernel_names_a_global_function_of_its_source(name):
+    """Every KERNELS entry names a `__global__` function of csrc/<name>.cu,
+    so that a report on the card finds its loop."""
+    function = sass.KERNELS[name][0]
+    source = (cuda_lib.SRC_DIR / f"{name}.cu").read_text()
+    assert re.search(rf"__global__ void(?: __launch_bounds__\([^)]*\))? "
+                     rf"{function}\(", source)
