@@ -7,10 +7,12 @@
                                             # frame, a large simple frame
                                             # and a large frame, written
                                             # to FILE*
-    python3 chip_smoke.py --parent DIR      # also K1 and K4 of the checkout
-                                            # at DIR, held bit for bit
-                                            # against this tree's and
-                                            # timed in turns with them
+    python3 chip_smoke.py --parent DIR      # also K1, K4 and K5 of the
+                                            # checkout at DIR, held against
+                                            # this tree's (K1, K4 bit for
+                                            # bit; K5 M equal, S within its
+                                            # rounding bound) and timed in
+                                            # turns with them
 
 Phases, one JSON result line each:
   1. device     the card's name and power limit; raises without CUDA
@@ -51,7 +53,20 @@ Phases, one JSON result line each:
                 tests/test_torch_dense_precull.py (k4_adversarial)
   7. k5         K5 (Morton-span gather) against its plain version on the
                 full-size frame's queries and a 2^16-path wave, the cell
-                the largest live radius
+                the largest live radius: M equal, S within its rounding
+                bound and equal bit for bit to the sums in item and photon
+                index order, two launches equal; the spans' spread (p50,
+                p99, max), J, the work items and their scratch slots and
+                bytes; the pair tests left after the exact pre-cull and
+                their share, the photons each warp keeps (spread), the
+                chunks staged against the chunks in the spans (these
+                counts from the cull's plain form on the card's inputs);
+                the kernel's device time and a whole grid_S call's (every
+                device record: the kernel and its prep), both from the
+                profiler, and host call time; both bounds; the
+                same checks on the adversarial inputs of
+                tests/test_torch_grid_precull.py (k5_adversarial); SASS
+                and registers (k5_sass)
   8. reference  a 32×32 frame on the card (kernels) against the same frame
                 on the CPU (plain versions)
   9. main       render_photon on the 512×512 glass Cornell box with 262,144
@@ -172,7 +187,8 @@ from raytrace_tpu_torch.scene import presets
 from raytrace_tpu_torch.scene.camera import generate_rays, pixel_samples
 from raytrace_tpu_torch.scene.scene import GLASS
 from raytrace_tpu_torch.utils import sass
-from raytrace_tpu_torch.utils.timing import (cuda_ms, device_records,
+from raytrace_tpu_torch.utils.timing import (call_device_ms, cuda_ms,
+                                             device_records,
                                              kernel_device_ms)
 
 SIZE = 512
@@ -362,12 +378,12 @@ def in_turns(mine, parent, measure) -> dict:
 
 
 def load_parent(root: Path) -> dict:
-    """K1's and K4's wrapper modules of the checkout at `root`, each bound to
-    that checkout's cuda_lib, which builds its sources into its own
-    _build/ → {"tri_intersect": module, "dense_gather": module,
-    "cuda_lib": module}. `root` must lie inside this checkout (as
-    _archive/ does, which .gitignore lists), so that the build writes
-    nowhere else."""
+    """K1's, K4's and K5's wrapper modules of the checkout at `root`, each
+    bound to that checkout's cuda_lib, which builds its sources into its
+    own _build/ → {"tri_intersect": module, "dense_gather": module,
+    "grid_gather": module, "cuda_lib": module}. `root` must lie inside
+    this checkout (as _archive/ does, which .gitignore lists), so that the
+    build writes nowhere else."""
     here = Path(__file__).resolve().parent
     root = root.resolve()
     if not root.is_relative_to(here):
@@ -383,7 +399,7 @@ def load_parent(root: Path) -> dict:
 
     lib = module("cuda_lib")
     mods = {"cuda_lib": lib}
-    for name in ("tri_intersect", "dense_gather"):
+    for name in ("tri_intersect", "dense_gather", "grid_gather"):
         mods[name] = module(name)
         mods[name].cuda_lib = lib
     return mods
@@ -822,9 +838,131 @@ def phase_k4(dev, scene, cfg, rec, r2, k_photon, parent=None):
     return row
 
 
-def phase_k5(scene, cfg, rec, r2, k_photon):
+def ordered_grid_S(lo_chunk, nc, qpT, qr2, qnsT, pdata, item_chunks):
+    """K5's function with each query's sums taken as K5 takes them: per work
+    item of at most item_chunks chunks one add per counted photon in
+    (chunk, photon) order (the order of a test of every pair; the culled
+    pairs add nothing), the items' partials added in item order → [4, NQ],
+    for an equality bit for bit."""
+    n_tiles, (n_chunks, _, chunk) = lo_chunk.shape[0], pdata.shape
+    slots = n_tiles + int(nc.sum()) // item_chunks
+    owner, lo, hi, first, count = work_items(lo_chunk, lo_chunk + nc,
+                                             item_chunks, slots)
+    n_items = int(count.sum())  # the items are the first slots
+    owner, lo, hi = (x[:n_items].long() for x in (owner, lo, hi))
+    qi = owner[:, None] * gg.TILE_Q + torch.arange(gg.TILE_Q,
+                                                  device=qpT.device)
+    qx, qy, qz, nx, ny, nz = (a[qi] for a in (*qpT, *qnsT))
+    r2 = qr2[qi]
+    acc = torch.zeros((4, n_items, gg.TILE_Q), device=qpT.device)
+    steps = int((hi - lo).max()) * chunk if n_items else 0
+    for s in range(steps):
+        c = lo + s // chunk
+        ph = pdata[c.clamp(max=n_chunks - 1), :, s % chunk]  # [items, 10]
+        col = lambda row: ph[:, row, None]
+        dx, dy, dz = qx - col(0), qy - col(1), qz - col(2)
+        ok = (((dx * dx + dy * dy + dz * dz) < r2) & (col(6) > 0.0)
+              & (c < hi)[:, None])
+        w = torch.abs(nx * col(3) + ny * col(4) + nz * col(5))
+        for ch in range(3):
+            acc[ch] = torch.where(ok, acc[ch] + w * col(7 + ch), acc[ch])
+        acc[3] = torch.where(ok, acc[3] + 1.0, acc[3])
+    out = torch.zeros((4, n_tiles, gg.TILE_Q), device=qpT.device)
+    for m in range(int(count.max()) if n_tiles else 0):
+        has = count > m
+        out[:, has] += acc[:, (first[has] + m).long()]
+    return out.reshape(4, n_tiles * gg.TILE_Q)
+
+
+def k5_counts(lo_chunk, nc, qpT, qr2, qnsT, pdata) -> dict:
+    """What the plain form of K5's culls (`precull_plain`) leaves of a
+    launch, computed by PyTorch on its inputs and not read from the
+    kernel (whose output does not depend on the cull): the pair tests of
+    the spans and those left after the photon cull with their share,
+    the photons each warp keeps over its tile's span (their spread: a
+    warp tests them one after another), the chunks in the spans, those a
+    block stages (some warp of the tile reaches them) and the (warp,
+    chunk) scans, and the chunks some span touches (read from memory at
+    least once)."""
+    cull = gg.precull_plain(lo_chunk, nc, qpT, qr2, pdata)
+    jobs, chunk = cull["tile"].shape[0], pdata.shape[2]
+    per_warp = torch.zeros((lo_chunk.shape[0], gg.WARPS), dtype=torch.int64,
+                           device=qpT.device)
+    per_warp.index_add_(0, cull["tile"], cull["keep"].sum(2))
+    pairs = jobs * gg.TILE_Q * chunk
+    left = int(cull["keep"].sum()) * gg.GROUP
+    return dict(pair_tests=pairs, tests_after_precull=left,
+                tests_after_precull_share=left / max(pairs, 1),
+                warp_survivors=spread_stats(per_warp.flatten()),
+                chunks_in_spans=jobs,
+                chunks_staged=int(cull["reach"].any(1).sum()),
+                warp_chunk_scans=int(cull["reach"].sum()),
+                warp_chunk_pairs=jobs * gg.WARPS,
+                chunks_touched=int(torch.unique(cull["chunk"]).numel()))
+
+
+def _k5_item_chunks() -> int:
+    return cuda_lib.load("grid_gather",
+                         gg._SIGNATURES).grid_gather_item_chunks()
+
+
+def _k5_exact(what: str, args) -> tuple:
+    """K5 on args: counts M equal to the plain version's, S within its
+    rounding bound, and the output equal bit for bit to `ordered_grid_S`
+    and to a second launch → (the kernel's output, the plain version's,
+    max abs error, max error in M·2^-24·S units)."""
+    got = gg.grid_S(*args)
+    again = gg.grid_S(*args)
+    want = gg.grid_S_plain(*args)
+    ordered = ordered_grid_S(*args, _k5_item_chunks())
+    torch.cuda.synchronize()
+    err, ulps = flux_check(f"K5 {what}", got, want)
+    bits = lambda a: a.view(torch.int32)
+    if not torch.equal(bits(got), bits(again)):
+        raise AssertionError(f"K5 {what}: two launches on the same inputs "
+                             "differ")
+    if not torch.equal(bits(got), bits(ordered)):
+        raise AssertionError(f"K5 {what}: S or M differ bit for bit from "
+                             "the sums in item and photon index order")
+    return got, want, err, ulps
+
+
+def _k5_adversarial(dev) -> None:
+    """K5 on the inputs tests/test_torch_grid_precull.py builds: K4's
+    adversarial cases in 128-query tiles over chunks of 32 photons (spans
+    of several work items), a span straddling a Morton octant boundary, an
+    empty chunk inside the spans and a tile with an empty span. One row per
+    case: the pairs the culls leave and those that count."""
+    path = Path(__file__).resolve().parent / "tests" / \
+        "test_torch_grid_precull.py"
+    spec = importlib.util.spec_from_file_location("k5_cases", path)
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    for name in cases.CASES:
+        args = cases.inputs(name, dev)
+        want = _k5_exact(name, args)[1]
+        lo, nc = args[:2]
+        emit("k5_adversarial", case=name, tiles=lo.shape[0],
+             chunks=args[5].shape[0], chunk=args[5].shape[2],
+             items=_items(lo, lo + nc, _k5_item_chunks()),
+             **k5_counts(*args), pairs_counted=float(want[3].sum()),
+             counts_equal_to_plain=True, equal_to_ordered_bit_for_bit=True,
+             repeats_bit_for_bit=True)
+
+
+def phase_k5(scene, cfg, rec, r2, k_photon, parent=None):
     """K5 on the full-size frame's live queries against a 2^16-path wave,
-    with the cell the largest live radius (JAX's contract)."""
+    with the cell the largest live radius (JAX's contract): M equal to the
+    plain version's, S within its rounding bound and equal bit for bit to
+    `ordered_grid_S` (the kernel's order), two launches equal, and the
+    parent's kernel within the same bound when given; the spans' spread,
+    J, the work items and their scratch; the pair tests left after the
+    exact pre-cull, the chunks staged (the plain cull's counts on these
+    inputs); the kernel's device time (the profiler's kernel records), a
+    whole call's (every device record of grid_S: the kernel and its prep)
+    and host call time (CUDA events), in turns with the parent's; both
+    bounds; the adversarial cases (k5_adversarial); SASS and registers
+    (k5_sass)."""
     photons = photon.trace_photons(
         scene, dataclasses.replace(cfg, photon_paths=K5_PATHS), k_photon, 0)
     live_r2 = torch.where(rec.hit, r2, 0.0)
@@ -832,21 +970,49 @@ def phase_k5(scene, cfg, rec, r2, k_photon):
     sp = gg.grid_spans(photons.p, photons.alpha, photons.wi, photons.valid,
                        cell, rec.p, live_r2, rec.ns)
     args = [sp[k] for k in ("lo_chunk", "nc", "qpT", "qr2", "qnsT", "pdata")]
-    got = gg.grid_S(*args)
-    want = gg.grid_S_plain(*args)
-    torch.cuda.synchronize()
-    err, ulps = flux_check("K5", got, want)
-    ms = cuda_ms(lambda: gg.grid_S(*args), 5)
+    got, want, err, ulps = _k5_exact("headline", args)
+    extra = {}
+    pgg = None if parent is None else parent["grid_gather"]
+    if pgg is not None:
+        theirs = pgg.grid_S(*args)
+        torch.cuda.synchronize()
+        extra["parent_max_abs_diff"] = flux_check("K5 against the parent "
+                                                  "kernel", theirs, got)[0]
+    # the kernel alone, every device record of a grid_S call (the kernel,
+    # the boxes and work items it needs, the zero-fills, the read of Σ nc)
+    # and the host's call rate
+    for what, measure in (
+            ("device_ms", lambda fn: kernel_device_ms(
+                fn, "grid_gather_kernel", 20)),
+            ("call_device_ms", lambda fn: call_device_ms(
+                fn, "grid_gather_kernel", 20)[0]),
+            ("host_call_ms", lambda fn: cuda_ms(fn, 20))):
+        for key, ms in in_turns(
+                lambda: gg.grid_S(*args),
+                None if pgg is None else lambda: pgg.grid_S(*args),
+                measure).items():
+            extra[f"{key}{what}_runs"] = ms
+    extra["call_device_records"] = call_device_ms(
+        lambda: gg.grid_S(*args), "grid_gather_kernel", 20)[1]
     plain_ms = cuda_ms(lambda: gg.grid_S_plain(*args), 1)
-    nc = sp["nc"].to(torch.float64)
+    counts = k5_counts(*args)
+    lo, nc = args[:2]
     n_chunks, _, chunk = sp["pdata"].shape
-    nq = sp["qr2"].shape[0]
-    pairs = int(nc.sum()) * gg.TILE_Q * chunk
-    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-               **bound(gather_ops(pairs, float(want[3].sum())),
-                       nq * (7 + 4) * 4 + n_chunks * chunk * gg.ROWS * 4
-                       + len(nc) * 8),
-               library_ms=None)
+    nq, n_tiles = sp["qr2"].shape[0], lo.shape[0]
+    hits = float(want[3].sum())
+    # each query read once (7 floats in, 4 out), each chunk some span
+    # touches once (10 rows), each span (8 bytes)
+    nbytes = (nq * (7 + 4) * 4 + counts["chunks_touched"] * chunk * 10 * 4
+              + n_tiles * 8)
+    full = bound(gather_ops(counts["pair_tests"], hits), nbytes)
+    row = dict(max_abs_err=err, ms=statistics.median(extra["device_ms_runs"]),
+               host_call_ms=statistics.median(extra["host_call_ms_runs"]),
+               plain_ms=plain_ms,
+               **bound(gather_ops(counts["tests_after_precull"], hits),
+                       nbytes),
+               bound_all_tests_ms=full["bound_ms"], library_ms=None)
+    item_chunks = _k5_item_chunks()
+    slots = n_tiles + int(nc.sum()) // item_chunks  # as the wrapper
     # no renderer calls K5 (as in JAX): its path is the public entry point,
     # driven once with the launch count reset around it
     kd = torch.full_like(rec.p, 0.25)
@@ -862,11 +1028,19 @@ def phase_k5(scene, cfg, rec, r2, k_photon):
                              "launches or counts other than the checked "
                              "ones")
     emit("k5", queries=rec.p.shape[0], slots=photons.p.shape[0],
-         n_valid=int(photons.valid.sum()), cell=cell, tiles=len(nc),
-         chunks=n_chunks, span_chunks_mean=float(nc.mean()),
-         span_chunks_max=int(nc.max()), pair_tests=pairs,
+         n_valid=int(photons.valid.sum()), cell=cell, tiles=n_tiles,
+         chunks=n_chunks, span_chunks=spread_stats(nc.long()),
+         item_chunks=item_chunks, items=_items(lo, lo + nc, item_chunks),
+         work_slots=slots, scratch_bytes=slots * 4 * gg.TILE_Q * 4,
+         **counts, pairs_counted=hits,
          max_flux=float(want[:3].abs().max()), max_err_over_M_ulp=ulps,
-         launches=launches, **row)
+         repeats_bit_for_bit=True, equal_to_ordered_bit_for_bit=True,
+         launches=launches, **extra, **row)
+    _k5_adversarial(got.device)
+    emit("k5_sass", **sass.report("grid_gather"))
+    if parent is not None:
+        emit("k5_sass", parent=True, **sass.report(
+            "grid_gather", parent["cuda_lib"].build("grid_gather")))
     return row, launches
 
 
@@ -2037,9 +2211,10 @@ def main() -> None:
                          "frame (FILE.large_simple) and one large frame "
                          "(FILE.large)")
     ap.add_argument("--parent", metavar="DIR", type=Path,
-                    help="a checkout of the parent tree: its K1 and K4 are "
-                         "built from DIR, held bit for bit against this "
-                         "tree's, and timed in turns with them, SASS too")
+                    help="a checkout of the parent tree: its K1, K4 and K5 "
+                         "are built from DIR, held against this tree's (K1 "
+                         "and K4 bit for bit, K5 within its rounding "
+                         "bound), and timed in turns with them, SASS too")
     args = ap.parse_args()
     # the kernels must be built from this checkout's sources, not from a
     # copy of the package installed elsewhere
@@ -2067,7 +2242,7 @@ def main() -> None:
     k3 = phase_k3(dev, jobs)
     del jobs
     k4 = phase_k4(dev, scene, cfg, rec, r2, k_photon, parent)
-    k5, k5_launches = phase_k5(scene, cfg, rec, r2, k_photon)
+    k5, k5_launches = phase_k5(scene, cfg, rec, r2, k_photon, parent)
     del rec, r2
     phase_reference(dev)
     launches, frame_s = phase_main(dev, scene, cam, cfg)

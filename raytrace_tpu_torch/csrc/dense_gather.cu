@@ -50,6 +50,9 @@
 #define CHUNK 512             // photons staged per pass
 #define FULL 0xffffffffu
 
+// K5 (csrc/grid_gather.cu) repeats the warp's box, the gap G and the
+// survivor list: a change to their exactness argument is made in both
+// kernels and in dense_gather.py's `group_box` and `gap2`
 __device__ __forceinline__ float gap(float p, float lo, float hi) {
   return p < lo ? lo - p : (p > hi ? p - hi : 0.f);
 }

@@ -42,33 +42,48 @@ def compact_photons(photons: PhotonMap):
             photons.valid[order], photons.valid.sum().to(torch.int32))
 
 
+def group_box(q, r2) -> tuple[Tensor, Tensor, Tensor]:
+    """The pre-cull box of each group of queries, q [..., GROUP, 3] and r2
+    [..., GROUP] → (lo, hi [..., 3], r2max [...]), as K4's and K5's warps
+    take it: the box spans the group's queries with r2 > 0, NaN coordinates
+    ignored, and r2max is their largest r2 (0 for none). A query with a
+    NaN position or r2, or r2 ≤ 0, never counts a photon (dist2 < r2 is
+    false)."""
+    live = r2 > 0.0
+    use = live[..., None] & ~torch.isnan(q)
+    lo = torch.where(use, q, float("inf")).amin(-2)
+    hi = torch.where(use, q, float("-inf")).amax(-2)
+    return lo, hi, torch.where(live, r2, 0.0).amax(-1)
+
+
+def gap2(plo, phi, lo, hi) -> Tensor:
+    """G = (gx² + gy²) + gz² between the boxes [plo, phi] and [lo, hi]
+    (a point p is the box [p, p]), [..., 3] → [...]. Per axis the gap
+    g = lo − phi where phi < lo, plo − hi where plo > hi, else 0, each
+    rounded as dist2 is. Rounding is monotone, so dist2 ≥ G for every
+    query in [lo, hi] and every photon in [plo, phi]; a NaN coordinate
+    gives a gap of 0 on its axis."""
+    g = torch.where(phi < lo, lo - phi, torch.where(plo > hi, plo - hi, 0.0))
+    gg = g * g
+    return gg[..., 0] + gg[..., 1] + gg[..., 2]
+
+
 def precull_plain(q_p, radius2, photons_p, photons_valid,
                   n_valid) -> Tensor:
     """K4's pre-cull → keep [ceil(N / GROUP), n_valid] bool: the photons of
     the valid prefix that each group of GROUP consecutive queries tests.
 
-    A group's box spans its queries with r2 > 0, NaN coordinates ignored,
-    and r2max is their largest r2 (0 for none). Per photon and axis the gap
-    g = qmin − p where p < qmin, p − qmax where p > qmax, else 0, and
-    G = (gx² + gy²) + gz², each rounded as dist2 is. Rounding is monotone,
-    so dist2 ≥ G for every query of the group: a photon with G ≥ r2max, or
-    an invalid one, counts for none of them and is dropped; a NaN G is
-    kept."""
+    Per photon G to the group's box (`group_box`, `gap2`): a photon with
+    G ≥ r2max, or an invalid one, counts for no query of the group and is
+    dropped; a NaN G is kept."""
     n, nv = q_p.shape[0], int(n_valid)
     pad = -n % GROUP
-    live = torch.nn.functional.pad(radius2 > 0.0, (0, pad)).view(-1, GROUP)
     q = torch.nn.functional.pad(q_p, (0, 0, 0, pad)).view(-1, GROUP, 3)
     r2 = torch.nn.functional.pad(radius2, (0, pad)).view(-1, GROUP)
-    use = live[..., None] & ~torch.isnan(q)
-    inf = torch.tensor(float("inf"), device=q_p.device)
-    lo = torch.where(use, q, inf).amin(1)[:, None, :]  # [G, 1, 3]
-    hi = torch.where(use, q, -inf).amax(1)[:, None, :]
-    r2max = torch.where(live, r2, 0.0).amax(1)[:, None]
+    lo, hi, r2max = group_box(q, r2)
     p = photons_p[:nv][None]  # [1, nv, 3]
-    g = torch.where(p < lo, lo - p, torch.where(p > hi, p - hi, 0.0))
-    gg = g * g
-    big = gg[..., 0] + gg[..., 1] + gg[..., 2]
-    return ~(big >= r2max) & photons_valid[None, :nv]
+    big = gap2(p, p, lo[:, None, :], hi[:, None, :])
+    return ~(big >= r2max[:, None]) & photons_valid[None, :nv]
 
 
 def dense_S_plain(q_p, radius2, q_ns, photons_p, photons_alpha, photons_wi,

@@ -8,14 +8,19 @@ cell at least as large as every radius, a tile's neighbourhood box
 [min(cell) − 1, max(cell) + 1] maps to one contiguous span of the sorted
 photons (Morton keys are monotone in each coordinate), a conservative
 superset found with two `searchsorted` calls; the kernel walks that span's
-chunks. Spans over-cover near octant boundaries, so the cost grows with the
-spans, not only with the photons in reach (the JAX note on this kernel).
+chunks. Spans over-cover near octant boundaries (the JAX note on this
+kernel): at phase k5's inputs 0.4% of a span's pairs count. So the kernel
+drops pairs before the test, exactly: each warp of 32 queries skips the
+chunks whose box (`chunk_boxes`) it cannot reach and the photons whose gap
+to its query box exceeds its largest radius (`precull_plain`, the cull as a
+predicate).
 
 As in the JAX package, no renderer calls `gather_radius_grid`: the row-span
 gather (ops/rowspan_gather.py) is the designed successor of this kernel.
 
 `grid_S` is the kernel's wrapper: CUDA tensors launch csrc/grid_gather.cu
-(one block per query tile over its own chunk span) or raise; CPU tensors
+(each tile's span cut into work items of at most J chunks, one block per
+item, the items summed per tile in a fixed order) or raise; CPU tensors
 take `grid_S_plain`.
 """
 from __future__ import annotations
@@ -26,13 +31,17 @@ import torch
 from torch import Tensor
 
 from raytrace_tpu_torch.ops import cuda_lib
+from raytrace_tpu_torch.ops.dense_gather import GROUP, gap2, group_box
 from raytrace_tpu_torch.ops.photon_grid import morton3
 from raytrace_tpu_torch.ops.rowspan_gather import (TILE_Q, _expand_ranges,
                                                    _pad0, tile_sums)
+from raytrace_tpu_torch.ops.work_items import work_items
 
 GRID_CHUNK = 512
 ROWS = 10  # photon rows per chunk: px py pz wx wy wz valid ax ay az
 _KEY_SENTINEL = 0xFFFFFFFF  # > any Morton key (30 bits): invalid photons
+WARPS = TILE_Q // GROUP  # pre-cull boxes of a tile (csrc/grid_gather.cu)
+_CULL_PER_STEP = 1 << 22  # plain pre-cull: (warp, photon) pairs per batch
 
 
 def grid_spans(photons_p, photons_alpha, photons_wi, photons_valid,
@@ -97,35 +106,101 @@ def grid_S_plain(lo_chunk, nc, qpT, qr2, qnsT, pdata) -> Tensor:
                      qnsT, pdata, alpha_row=7)
 
 
-_SIGNATURES = {"grid_gather": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-               + [ctypes.c_void_p] * 6}
+def chunk_boxes(pdata) -> Tensor:
+    """Each chunk's box over its valid photons → [n_chunks, 6] f32 (lo xyz,
+    hi xyz). A NaN coordinate makes that axis NaN (the kernel then keeps
+    the chunk on that axis); a chunk without a valid photon gets the
+    inverted box (+inf, −inf), which no query reaches. Device ops only."""
+    valid = pdata[:, 6:7, :] > 0.0
+    p = pdata[:, :3, :]
+    lo = torch.where(valid, p, float("inf")).amin(2)
+    hi = torch.where(valid, p, float("-inf")).amax(2)
+    return torch.cat([lo, hi], dim=1).contiguous()
+
+
+def precull_plain(lo_chunk, nc, qpT, qr2, pdata) -> dict:
+    """K5's pre-cull over the (tile, chunk) jobs of the spans, in tile order
+    and chunk order → dict of tile, chunk [jobs] (the jobs), reach [jobs,
+    WARPS] (the warp reaches the chunk's box) and keep [jobs, WARPS, chunk]
+    (the photons the warp tests).
+
+    A warp is GROUP consecutive queries of a tile, with K4's box and r2max
+    (`dense_gather.group_box`; r2max 0: the warp keeps nothing). G of a
+    photon, or of the chunk's box (`chunk_boxes`), to the warp's box is
+    K4's (`dense_gather.gap2`), so dist² ≥ G for every query of the warp:
+    a chunk or photon with G ≥ r2max, or an invalid photon, counts for
+    none of them and is dropped; a NaN G is kept. A chunk's box holds each
+    of its photons, so a warp keeps no photon of a chunk it does not
+    reach."""
+    tile, chunk_id = _expand_ranges(lo_chunk, lo_chunk + nc)
+    n_tiles, chunk = lo_chunk.shape[0], pdata.shape[2]
+    lo, hi, r2max = group_box(  # [n_tiles, WARPS, 3] ×2, [n_tiles, WARPS]
+        qpT.view(3, n_tiles, WARPS, GROUP).permute(1, 2, 3, 0),
+        qr2.view(n_tiles, WARPS, GROUP))
+    box = chunk_boxes(pdata)
+    reach, keep = [], []
+    step = max(1, _CULL_PER_STEP // (WARPS * chunk))
+    for j0 in range(0, tile.shape[0], step):
+        t, c = tile[j0:j0 + step], chunk_id[j0:j0 + step]
+        wlo, whi, rm = lo[t], hi[t], r2max[t]  # [B, WARPS, 3], [B, WARPS]
+        b = box[c][:, None, :]  # [B, 1, 6]
+        reach.append(~(gap2(b[..., :3], b[..., 3:], wlo, whi) >= rm)
+                     & (rm > 0.0))
+        ph = pdata[c][:, None, :3].transpose(2, 3)  # [B, 1, chunk, 3]
+        g = gap2(ph, ph, wlo[:, :, None], whi[:, :, None])
+        keep.append(~(g >= rm[..., None]) & (rm[..., None] > 0.0)
+                    & (pdata[c, 6][:, None] > 0.0))
+    empty = lambda *s: torch.zeros((0, *s), dtype=torch.bool,
+                                   device=qpT.device)
+    return dict(tile=tile, chunk=chunk_id,
+                reach=torch.cat(reach) if reach else empty(WARPS),
+                keep=torch.cat(keep) if keep else empty(WARPS, chunk))
+
+
+_SIGNATURES = {"grid_gather_item_chunks": [],
+               "grid_gather": [ctypes.c_void_p] * 3 + [ctypes.c_int]
+               + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+               + [ctypes.c_void_p] * 8}
 
 
 def grid_S(lo_chunk, nc, qpT, qr2, qnsT, pdata) -> Tensor:
     """Kernel K5 over the tiles' chunk spans → [4, n_tiles·128] (see
     grid_S_plain).
 
-    lo_chunk/nc [n_tiles] int32; qpT/qnsT [3, NQ], qr2 [NQ] f32 with
-    NQ = n_tiles·128; pdata [n_chunks, 10, chunk] f32. CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
+    lo_chunk/nc [n_tiles] int32, spans inside pdata; qpT/qnsT [3, NQ], qr2
+    [NQ] f32 with NQ = n_tiles·128; pdata [n_chunks, 10, chunk] f32. CPU
+    tensors take the plain version; CUDA tensors launch the kernel. The
+    chunk boxes of its skip are computed here from pdata, so that they
+    always hold its photons. The grid is one block per work item: the
+    spans' total is read once on the host, since no bound known to the
+    host keeps the scratch small (a tile's span may cover every chunk)."""
     if qpT.device.type == "cpu":
         return grid_S_plain(lo_chunk, nc, qpT, qr2, qnsT, pdata)
     n_tiles = lo_chunk.shape[0]
     nq = n_tiles * TILE_Q
     n_chunks, _, chunk = pdata.shape
-    cuda_lib.check_inputs("grid_S", qpT.device, [
+    dev = qpT.device
+    cuda_lib.check_inputs("grid_S", dev, [
         (lo_chunk, torch.int32, (n_tiles,)), (nc, torch.int32, (n_tiles,)),
         (qpT, torch.float32, (3, nq)), (qr2, torch.float32, (nq,)),
         (qnsT, torch.float32, (3, nq)),
         (pdata, torch.float32, (n_chunks, ROWS, chunk))])
-    if not 0 < chunk <= 1024:  # 10 staged rows must fit in 48 KB of smem
+    if not 0 < chunk <= 1024:  # the staged rows must fit in shared memory
         raise ValueError(f"grid_S: chunk {chunk} outside (0, 1024]")
     lib = cuda_lib.load("grid_gather", _SIGNATURES)
-    out = torch.empty((4, nq), dtype=torch.float32, device=qpT.device)
-    ptr = cuda_lib.ptr
-    err = lib.grid_gather(ptr(lo_chunk), ptr(nc), n_tiles, chunk,
-                          ptr(qpT), ptr(qr2), ptr(qnsT), ptr(pdata), ptr(out),
-                          cuda_lib.stream_ptr(qpT.device))
+    item_chunks = lib.grid_gather_item_chunks()
+    slots = n_tiles + int(nc.clamp(min=0).sum()) // item_chunks
+    item_tile, lo, hi, first, count = work_items(lo_chunk, lo_chunk + nc,
+                                                 item_chunks, slots)
+    cbox = chunk_boxes(pdata)
+    done = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
+    partial = torch.empty((slots, 4, TILE_Q), dtype=torch.float32, device=dev)
+    out = torch.zeros((4, nq), dtype=torch.float32, device=dev)
+    p = cuda_lib.ptr
+    err = lib.grid_gather(p(item_tile), p(lo), p(hi), slots, p(first),
+                          p(count), p(done), n_tiles, chunk, p(qpT), p(qr2),
+                          p(qnsT), p(pdata), p(cbox), p(partial), p(out),
+                          cuda_lib.stream_ptr(dev))
     cuda_lib.check(err, "grid_gather")
     grid_S.launches += 1
     return out

@@ -29,6 +29,7 @@ from raytrace_tpu_torch.ops import cuda_lib
 # kernel → (its __global__ function, marker opcode, markers per test)
 KERNELS = {"tri_intersect": ("tri_closest_kernel", "MUFU.RCP", 1),
            "dense_gather": ("dense_gather_kernel", "FMUL", 9),
+           "grid_gather": ("grid_gather_kernel", "FMUL", 9),
            "epoch_cull": ("epoch_cull_kernel", "FMUL", 6),
            "epoch_mt": ("epoch_mt_kernel", "MUFU.RCP", 1),
            "cluster_cull": ("cluster_cull_kernel", "FMUL", 6),

@@ -49,3 +49,34 @@ def kernel_device_ms(fn, kernel: str, iters: int) -> float:
         raise AssertionError(f"profiler: {len(times)} records of {kernel} "
                              f"for {iters} launches")
     return sum(times) / len(times) / 1e3
+
+
+def call_device_ms(fn, last: str, iters: int) -> tuple[float, float]:
+    """Device time of one call of fn over every device record it makes (its
+    kernels, the prep's small ops, copies), from the profiler → (ms a
+    call, records a call). `last` names the call's last kernel: the
+    records, in order of their start on the card, are cut into calls after
+    each of its records, and the mean is over the calls that lie whole
+    between the first and the last of them (the profiler may drop the
+    records at the end of its window), at least half of the iters calls
+    after a warm-up."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    recs = sorted((e.time_range.start, e.name.split("(")[0],
+                   e.device_time_total)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA)
+    ends = [k for k, (_, name, _) in enumerate(recs) if name == last]
+    calls = len(ends) - 1
+    if calls < iters / 2:
+        raise AssertionError(f"profiler: {len(ends)} records of {last} for "
+                             f"{iters} calls")
+    whole = recs[ends[0] + 1:ends[-1] + 1]
+    return sum(us for _, _, us in whole) / calls / 1e3, len(whole) / calls

@@ -213,10 +213,10 @@ def test_k2_items_summed_in_order_equal_the_whole(headline, k2_whole, size):
 
 @pytest.mark.parametrize("name, define", [
     ("rowspan_gather", "ITEM_JOBS"), ("rowspan_gather_bwd", "ITEM_JOBS"),
-    ("cluster_pair", "ITEM_PAIRS")])
+    ("cluster_pair", "ITEM_PAIRS"), ("grid_gather", "ITEM_CHUNKS")])
 def test_sweep_rewrites_the_one_work_item_constant(name, define):
-    """utils/sweep.py rebuilds K2, K3 and K7 with other work-item sizes by
-    rewriting one `#define` line of the source, and nothing else."""
+    """utils/sweep.py rebuilds K2, K3, K5 and K7 with other work-item sizes
+    by rewriting one `#define` line of the source, and nothing else."""
     source = (cuda_lib.SRC_DIR / f"{name}.cu").read_text()
     text = sweep.with_define(source, define, 1 << 30)
     assert f"#define {define} {1 << 30}\n" in text
