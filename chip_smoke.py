@@ -95,10 +95,32 @@ Phases, one JSON result line each:
  15. simple     render_simple on the 256×256 sphere and plane (BASELINE
                 config[0]): a warm-up, then the median of 5 frames; and a
                 32×32 frame on the card against the CPU's
+The front end (pbrt files and the raytrace-tpu-torch CLI):
+ 16. pbrt       examples/cornell.pbrt with a 512×512 Film through load_pbrt
+                on the card: every array of the scene and camera against
+                presets.cornell_box (ints equal, floats within 1e-6); the
+                parse's host seconds
+ 17. cli        cli.main in this process on that file at the headline's
+                paths: the PFM it writes against render_photon on the
+                parsed scene (bit for bit, or within the spread of 4
+                direct renders, which the line reports) and within 1e-3
+                relative L1 of the preset's frame; K1 and K2 launches over
+                the call; its printed time and rate beside the direct
+                render's median of 3; --passes 2 with a checkpoint resumed
+                to 4 against 4 in one call; --renderer simple (K1); and
+                examples/render_pbrt_torch.py as a subprocess
+ 18. pbrt_large  triangle_field(1 << 16, 512) written as a pbrt file
+                (floats by repr), parsed on the card: host seconds and
+                tokens/s of the parse apart from the SAH, cluster and
+                upload seconds; the scene's tensors equal to the preset's,
+                the camera within 1e-6; rendered by cli.main at the
+                headline's paths: K6-K9 and K2 launches, overflow 0, the
+                frame against render_photon on the parsed scene and the
+                preset's frame as in phase cli
 The large-scene path (BASELINE config[4], 4,194,304 triangles):
- 16. build_large  host time of triangle_field(1 << 22, 512): the SAH build,
+ 19. build_large  host time of triangle_field(1 << 22, 512): the SAH build,
                 the cluster set and the upload; node and cluster counts
- 17. k8, k9     K8 (epoch cull) and K9 (subtile Möller–Trumbore) against
+ 20. k8, k9     K8 (epoch cull) and K9 (subtile Möller–Trumbore) against
                 their plain versions on the frame's own launches, captured
                 from the epoch engine, a row per epoch: the camera launch
                 (262,144 rays) in full and the photon emission launch
@@ -109,9 +131,9 @@ The large-scene path (BASELINE config[4], 4,194,304 triangles):
                 work beside the bound on all tests; K9 also on the camera
                 list shifted by one job and shuffled, K8 also on the
                 adversarial inputs of tests/test_torch_epoch_precull.py
- 18. engine     the epoch engine against the BVH traversal on the camera
+ 21. engine     the epoch engine against the BVH traversal on the camera
                 launch: t within 1e-5, idx differences counted, overflow 0
- 19. k6, k7     K6 (tile cull) and K7 (pair Möller–Trumbore) against their
+ 22. k6, k7     K6 (tile cull) and K7 (pair Möller–Trumbore) against their
                 plain versions on every call of one run_triangle_field frame
                 (its camera and shadow launches, captured from the cluster
                 engine): K6's mask in full, with the tiles its exact
@@ -127,13 +149,13 @@ The large-scene path (BASELINE config[4], 4,194,304 triangles):
                 registers (k7_sass), each launch's pairs per tile and work
                 items, and a bound on the work its function needs beside the
                 bound on all tests
- 20. cluster_engine  the cluster engine against the epoch engine on the same
+ 23. cluster_engine  the cluster engine against the epoch engine on the same
                 two launches: overflow 0, flips and t bounded, idx
                 differences counted, each engine timed per launch
- 21. large_simple  render_simple at bench.py run_triangle_field's settings
+ 24. large_simple  render_simple at bench.py run_triangle_field's settings
                 (512², 1 spp) on the same scene: a warm-up and 3 frames,
                 every launch coherent, so K6 and K7 and no K8 or K9
- 22. large      render_photon at bench.py run_combined's settings (2^22
+ 25. large      render_photon at bench.py run_combined's settings (2^22
                 paths, 16.8M slots): a 32×32 triangle_field(2048) frame on
                 the card against the CPU's, the warm-up frame's K2 launch
                 held against its plain version (a k2 line, launch large,
@@ -150,6 +172,7 @@ import argparse
 import contextlib
 import dataclasses
 import importlib.util
+import io
 import json
 import logging
 import math
@@ -157,6 +180,7 @@ import os
 import re
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 import warnings
@@ -167,6 +191,7 @@ import numpy as np
 import torch
 
 import raytrace_tpu_torch
+from raytrace_tpu_torch import cli, load_pbrt
 from raytrace_tpu_torch.core import prng
 from raytrace_tpu_torch.core.config import RenderConfig
 from raytrace_tpu_torch.diff import optim
@@ -185,8 +210,10 @@ from raytrace_tpu_torch.ops.work_items import work_items
 from raytrace_tpu_torch.renderers import common, photon, simple
 from raytrace_tpu_torch.scene import presets
 from raytrace_tpu_torch.scene.camera import generate_rays, pixel_samples
+from raytrace_tpu_torch.scene import pbrt
 from raytrace_tpu_torch.scene.scene import GLASS
-from raytrace_tpu_torch.utils import sass
+from raytrace_tpu_torch.utils import checkpoint as ckpt
+from raytrace_tpu_torch.utils import image, sass
 from raytrace_tpu_torch.utils.timing import (call_device_ms, cuda_ms,
                                              device_records,
                                              kernel_device_ms)
@@ -203,6 +230,13 @@ PREVIEW = dict(BENCH, photon_paths=1 << 11, photon_passes=16)
 MULTIWAVE = dict(BENCH, photon_passes=8)
 # bench.py run_scaling's map (bench.py:447): 2^16 paths, 262,144 slots
 K5_PATHS = 1 << 16
+# the front end: examples/cornell.pbrt at the headline's width, parsed and
+# held against presets.cornell_box (floats to 1e-6, as tests/test_pbrt.py
+# holds them), and config[4]'s scene at 1/64 of its triangles written as a
+# pbrt file (the parser is pure Python on the host, as in JAX)
+CORNELL_PBRT = Path(__file__).resolve().parent / "examples" / "cornell.pbrt"
+PBRT_ATOL = 1e-6
+PBRT_LARGE_TRIS = 1 << 16
 # BASELINE config[0] as examples/render_sphere_plane.py renders it
 SIMPLE = dict(width=256, height=256, spp=4, scene_epsilon=1e-3)
 N_RAYS = 1 << 18
@@ -1348,6 +1382,215 @@ def phase_simple(dev, frames=5):
     return scene, cam, frame_s
 
 
+def tree_diff(got, want, path: str = "") -> dict:
+    """Two port dataclasses (a scene or a camera), field by field →
+    {field: largest absolute difference} over the float fields. An int or
+    bool field that differs, a shape, a dtype, a device or a None on one
+    side only raises."""
+    out = {}
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        name = f"{path}.{f.name}"
+        if dataclasses.is_dataclass(a):
+            out.update(tree_diff(a, b, name))
+        elif a is None or b is None:
+            if a is not None or b is not None:
+                raise AssertionError(f"{name}: None on one side only")
+        elif isinstance(a, torch.Tensor):
+            if (a.shape, a.dtype, a.device) != (b.shape, b.dtype, b.device):
+                raise AssertionError(f"{name}: {a.shape} {a.dtype} {a.device} "
+                                     f"against {b.shape} {b.dtype} {b.device}")
+            if not a.is_floating_point():
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name}: values differ")
+            else:  # equal infinities (padding boxes) count as 0
+                d = torch.where(a == b, 0.0, (a - b).abs())
+                out[name] = float(d.max()) if d.numel() else 0.0
+        elif isinstance(a, float):
+            out[name] = abs(a - b)
+        elif a != b:
+            raise AssertionError(f"{name}: {a} against {b}")
+    return out
+
+
+def cornell_pbrt(tmp: str) -> str:
+    """examples/cornell.pbrt with its Film at SIZE×SIZE, written into tmp."""
+    text = CORNELL_PBRT.read_text()
+    film = '"integer xresolution" [128] "integer yresolution" [128]'
+    if film not in text:
+        raise AssertionError(f"{CORNELL_PBRT} has no 128×128 Film line")
+    path = os.path.join(tmp, f"cornell{SIZE}.pbrt")
+    with open(path, "w") as f:
+        f.write(text.replace(film, film.replace("128", str(SIZE))))
+    return path
+
+
+def phase_pbrt(dev, card, tmp):
+    """examples/cornell.pbrt at SIZE×SIZE through load_pbrt on the card:
+    every array of the scene and camera against presets.cornell_box (ints
+    equal, floats within 1e-6), and the parse's host seconds → the file's
+    path."""
+    path = cornell_pbrt(tmp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parsed = load_pbrt(path, dev)
+    torch.cuda.synchronize()
+    parse_s = time.perf_counter() - t0
+    scene, cam = presets.cornell_box(dev, SIZE, ball="glass")
+    opts = (parsed.width, parsed.height, parsed.spp, parsed.renderer,
+            parsed.pixel_filter)
+    if opts != (SIZE, SIZE, 1, "photonmapping", "box"):
+        raise AssertionError(f"pbrt: film and options {opts}")
+    diffs = {**tree_diff(parsed.scene, scene, "scene"),
+             **tree_diff(parsed.camera, cam, "camera")}
+    worst = max(diffs, key=diffs.get)
+    if not diffs[worst] <= PBRT_ATOL:
+        raise AssertionError(f"pbrt: {worst} differs by {diffs[worst]}")
+    emit("pbrt", nvidia_smi=card, file=os.path.basename(path), size=SIZE,
+         parse_s=parse_s, float_fields=len(diffs),
+         max_abs_diff=diffs[worst], worst_field=worst, ints_equal=True)
+    return path
+
+
+def run_cli(argv: list) -> tuple[str, float]:
+    """cli.main(argv) in this process, overflow warnings refused → (what it
+    printed, host seconds)."""
+    buf = io.StringIO()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        wall_s = time.perf_counter() - t0
+    overflows = [str(w.message) for w in caught
+                 if "overflow" in str(w.message)]
+    if overflows:
+        raise AssertionError(f"CLI {argv}: {overflows}")
+    return buf.getvalue(), wall_s
+
+
+def cli_printed(out: str) -> dict:
+    """The CLI's printed render time and rates."""
+    m = re.search(r"rendered in (\S+)s\s+\((\S+) Mrays/s, (\S+) Mphotons/s\)",
+                  out)
+    if m is None:
+        raise AssertionError(f"the CLI printed no render line: {out!r}")
+    return dict(render_s=float(m[1]), mrays_per_s=float(m[2]),
+                mphotons_per_s=float(m[3]))
+
+
+def read_image(path: str, dev) -> torch.Tensor:
+    return torch.from_numpy(image.read_pfm(path)).to(dev)
+
+
+def direct_frames(scene, cam, cfg, key, n: int = 4):
+    """render_photon n times with one key: a warm-up and n - 1 timed frames
+    → (the first image, the frames' largest max-abs difference from it,
+    the timed frames' seconds, the first frame's aux)."""
+    imgs, times, auxes = [], [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        img, aux = photon.render_photon(scene, cam, cfg, key,
+                                        return_aux=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        imgs.append(img)
+        auxes.append(aux)
+    spread = max(float((img - imgs[0]).abs().max()) for img in imgs[1:])
+    return imgs[0], spread, times[1:], auxes[0]
+
+
+def frame_check(what: str, img, ref) -> float:
+    """img finite and not black, within the §2 frame bound (relative L1
+    REF_REL_L1) of ref → that relative L1."""
+    rel_l1 = float((img - ref).abs().sum() / ref.abs().sum())
+    if not (bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0
+            and rel_l1 <= REF_REL_L1):
+        raise AssertionError(f"{what}: rel L1 {rel_l1} against the preset's "
+                             f"frame, mean {float(img.mean())}")
+    return rel_l1
+
+
+def phase_cli(dev, card, path, tmp):
+    """raytrace-tpu-torch in this process on the SIZE×SIZE Cornell file at
+    the headline's paths: its frame against render_photon on the parsed
+    scene (bit for bit, or within the spread of the direct renders) and
+    against the preset's frame; K1 and K2 launches over the call; its
+    printed time beside the direct render's; a checkpointed run resumed;
+    the simple renderer; examples/render_pbrt_torch.py as a subprocess."""
+    paths = BENCH["photon_paths"]
+    flags = ["--photon-paths", str(paths), "--footprint-radius-scale", "8",
+             "--seed", "0"]
+    cfg = RenderConfig(width=SIZE, height=SIZE, spp=1, scene_epsilon=1e-3,
+                       photon_paths=paths, seed=0, footprint_radius_scale=8.0)
+    key = prng.PRNGKey(0, dev)
+    parsed = load_pbrt(path, dev)
+    direct, spread, direct_s, aux = direct_frames(parsed.scene,
+                                                  parsed.camera, cfg, key)
+    if int(aux["gather_overflow"]) or aux["pair_overflow"]:
+        raise AssertionError(f"cli: direct render overflow {aux}")
+    ti.closest_hit.launches = 0
+    rg.rowspan_S.launches = 0
+    out, cli_wall_s = run_cli([path, *flags, "-o", f"{tmp}/cli.pfm"])
+    launches = {"k1": ti.closest_hit.launches, "k2": rg.rowspan_S.launches}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"cli: a kernel was not launched: {launches}")
+    got = read_image(f"{tmp}/cli.pfm", dev)
+    cli_diff = float((got - direct).abs().max())
+    if got.shape != (SIZE, SIZE, 3) or not cli_diff <= spread:
+        raise AssertionError(f"cli: frame differs from render_photon by "
+                             f"{cli_diff} (direct renders: {spread})")
+    scene, cam = presets.cornell_box(dev, SIZE, ball="glass")
+    preset_rel = frame_check("cli", got, photon.render_photon(scene, cam,
+                                                              cfg, key))
+    # a checkpointed run of 2 waves resumed to 4 against 4 in one call
+    ck = f"{tmp}/cli.ckpt"
+    run_cli([path, *flags, "--passes", "2", "--checkpoint", ck, "-o",
+             f"{tmp}/half.pfm"])
+    run_cli([path, *flags, "--passes", "4", "--checkpoint", ck, "-o",
+             f"{tmp}/resumed.pfm"])
+    run_cli([path, *flags, "--passes", "4", "-o", f"{tmp}/whole.pfm"])
+    resumed = read_image(f"{tmp}/resumed.pfm", dev)
+    whole = read_image(f"{tmp}/whole.pfm", dev)
+    resume_diff = float((resumed - whole).abs().max())
+    waves_done = ckpt.load_progressive(ck, dev)[1]
+    if not resume_diff <= spread or waves_done != 4:
+        raise AssertionError(f"cli: resumed frame differs by {resume_diff} "
+                             f"(direct renders: {spread}), {waves_done} "
+                             "waves in the checkpoint")
+    frame_check("cli resumed", resumed, whole)
+    ti.closest_hit.launches = 0
+    run_cli([path, *flags, "--renderer", "simple", "-o", f"{tmp}/simple.pfm"])
+    simple_k1 = ti.closest_hit.launches
+    simple_img = read_image(f"{tmp}/simple.pfm", dev)
+    if simple_k1 <= 0 or not (bool(torch.isfinite(simple_img).all())
+                              and float(simple_img.mean()) > 0.0):
+        raise AssertionError(f"cli --renderer simple: K1 {simple_k1}, image "
+                             f"mean {float(simple_img.mean())}")
+    png = f"{tmp}/example.png"
+    proc = subprocess.run(
+        [sys.executable, "examples/render_pbrt_torch.py",
+         "examples/cornell.pbrt", "-o", png],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode != 0 or not os.path.getsize(png):
+        raise AssertionError(f"examples/render_pbrt_torch.py exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    direct_median = statistics.median(direct_s)
+    emit("cli", nvidia_smi=card, size=SIZE, photon_paths=paths,
+         launches=launches, cli_printed=cli_printed(out),
+         cli_wall_s=cli_wall_s, direct_s=direct_s,
+         direct_median_s=direct_median,
+         direct_rays_per_s=SIZE * SIZE / direct_median,
+         direct_photons_per_s=paths / direct_median,
+         direct_spread_max_abs=spread, cli_max_abs_diff=cli_diff,
+         bit_for_bit=cli_diff == 0.0, preset_rel_l1=preset_rel,
+         resume_max_abs_diff=resume_diff, resume_bit_for_bit=resume_diff == 0.0,
+         simple_launches={"k1": simple_k1},
+         example_png_bytes=os.path.getsize(png),
+         image_mean=float(got.mean()))
+
+
 class _BuildLog(logging.Handler):
     """Collects the fields of the builder's `scene_build` line."""
 
@@ -1385,6 +1628,101 @@ def phase_build_large(dev):
          bvh_s=float(f["bvh_s"]), clusters_s=float(f["clusters_s"]),
          upload_s=float(f["upload_s"]))
     return scene, cam
+
+
+def pbrt_mesh_text(verts, idx) -> str:
+    """triangle_field's scene as pbrt-v2 text, every float64 vertex printed
+    with repr so that it reads back exactly."""
+    floats = " ".join(repr(float(x)) for x in verts.ravel())
+    ints = " ".join(map(str, idx.ravel().tolist()))
+    return "\n".join([
+        "LookAt 0 -14 9  0 0 0  0 0 1",
+        'Camera "perspective" "float fov" [55]',
+        f'Film "image" "integer xresolution" [{SIZE}] '
+        f'"integer yresolution" [{SIZE}]',
+        "WorldBegin",
+        'Material "matte" "rgb Kd" [0.55 0.55 0.6]',
+        f'Shape "trianglemesh" "integer indices" [{ints}]',
+        f'  "point P" [{floats}]',
+        'LightSource "point" "rgb I" [500 500 500] "point from" [0 0 14]',
+        "WorldEnd", ""])
+
+
+def phase_pbrt_large(dev, card, tmp):
+    """triangle_field(1 << 16, SIZE) written as a pbrt file, parsed on the
+    card (host seconds and tokens/s of the parse, apart from the builder's
+    SAH, cluster and upload seconds) and held against the preset: scene
+    tensors equal, camera within 1e-6. Then rendered through the CLI at the
+    headline's paths: K6-K9 and K2 launches, overflow 0, the frame against
+    render_photon on the parsed scene and the preset's frame."""
+    verts, idx = presets.terrain_mesh(PBRT_LARGE_TRIS)
+    path = f"{tmp}/triangle_field.pbrt"
+    text = pbrt_mesh_text(verts, idx)
+    with open(path, "w") as f:
+        f.write(text)
+    tokens = sum(1 for _ in pbrt._tokenize(text))
+    log = _BuildLog()
+    logger = logging.getLogger("raytrace_tpu_torch")
+    logger.addHandler(log)
+    logger.setLevel(logging.INFO)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parsed = load_pbrt(path, dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        logger.removeHandler(log)
+    f = log.fields
+    build_s = float(f["bvh_s"]) + float(f["clusters_s"]) + float(f["upload_s"])
+    parse_s = load_s - build_s
+    scene, cam = presets.triangle_field(dev, PBRT_LARGE_TRIS, SIZE)
+    if parsed.scene.clusters is None or int(f["triangles"]) != (
+            PBRT_LARGE_TRIS):
+        raise AssertionError(f"pbrt_large: no cluster set, or {f}")
+    scene_diff = tree_diff(parsed.scene, scene, "scene")
+    unequal = [k for k, v in scene_diff.items() if v != 0.0]
+    cam_diff = tree_diff(parsed.camera, cam, "camera")
+    cam_worst = max(cam_diff.values())
+    if unequal or not cam_worst <= PBRT_ATOL:
+        raise AssertionError(f"pbrt_large: scene fields {unequal} differ, "
+                             f"camera by {cam_worst}")
+    paths = BENCH["photon_paths"]
+    flags = ["--photon-paths", str(paths), "--footprint-radius-scale", "8",
+             "--seed", "0"]
+    cfg = RenderConfig(width=SIZE, height=SIZE, spp=1, scene_epsilon=1e-3,
+                       photon_paths=paths, seed=0, footprint_radius_scale=8.0)
+    key = prng.PRNGKey(0, dev)
+    direct, spread, direct_s, aux = direct_frames(parsed.scene,
+                                                  parsed.camera, cfg, key)
+    if int(aux["gather_overflow"]) or aux["pair_overflow"]:
+        raise AssertionError(f"pbrt_large: overflow {aux}")
+    _reset_kernel_counts()
+    out, cli_wall_s = run_cli([path, *flags, "-o", f"{tmp}/large.pfm"])
+    counts = _kernel_counts()
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"pbrt_large: a kernel was not launched: "
+                             f"{counts}")
+    got = read_image(f"{tmp}/large.pfm", dev)
+    cli_diff = float((got - direct).abs().max())
+    if not cli_diff <= spread:
+        raise AssertionError(f"pbrt_large: frame differs from render_photon "
+                             f"by {cli_diff} (direct renders: {spread})")
+    preset_rel = frame_check("pbrt_large", got, photon.render_photon(
+        scene, cam, cfg, key))
+    direct_median = statistics.median(direct_s)
+    emit("pbrt_large", nvidia_smi=card, triangles=PBRT_LARGE_TRIS,
+         vertices=int(verts.shape[0]), file_bytes=len(text), tokens=tokens,
+         load_s=load_s, parse_s=parse_s, build_s=build_s,
+         tokens_per_s=tokens / parse_s, camera_max_abs_diff=cam_worst,
+         scene_bit_for_bit=True, launches=counts,
+         pair_overflow=int(aux["pair_overflow"]),
+         gather_overflow=int(aux["gather_overflow"]),
+         cli_printed=cli_printed(out), cli_wall_s=cli_wall_s,
+         direct_s=direct_s, direct_median_s=direct_median,
+         direct_spread_max_abs=spread, cli_max_abs_diff=cli_diff,
+         bit_for_bit=cli_diff == 0.0, preset_rel_l1=preset_rel,
+         image_mean=float(got.mean()))
 
 
 @contextlib.contextmanager
@@ -2270,8 +2608,14 @@ def main() -> None:
             sp_scene, sp_cam, RenderConfig(**SIMPLE), prng.PRNGKey(9, dev)),
             simple_s, args.profile + ".simple")
 
-    # the large-scene path: BASELINE config[4]
+    # the front end: pbrt files and the CLI
     del scene, sp_scene
+    with tempfile.TemporaryDirectory() as tmp:
+        path = phase_pbrt(dev, card, tmp)
+        phase_cli(dev, card, path, tmp)
+        phase_pbrt_large(dev, card, tmp)
+
+    # the large-scene path: BASELINE config[4]
     lscene, lcam = phase_build_large(dev)
     lcfg = RenderConfig(**LARGE)
     k8, k9, camera = phase_k8_k9(large_launches(dev, lscene, lcam, lcfg),

@@ -20,7 +20,13 @@ Hopper (csrc/), built with nvcc at first use and bound through ctypes:
 Each wrapper runs its plain PyTorch version for CPU tensors only; a CUDA
 tensor launches the kernel or raises.
 
+The front end is JAX's: `load_pbrt(path, device)` / `loads_pbrt(text,
+device)` parse a pbrt-v2 scene (scene/pbrt.py), `raytrace-tpu-torch`
+(cli.py) renders one to PNG, PFM or EXR (utils/image.py).
+
 This package imports torch and numpy only — never jax or flax.
 """
 
 __version__ = "0.1.0"
+
+from raytrace_tpu_torch.scene.pbrt import load_pbrt, loads_pbrt  # noqa: E402,F401

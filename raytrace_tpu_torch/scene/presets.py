@@ -74,11 +74,10 @@ def cornell_box(
     return b.build(device), cam
 
 
-def triangle_field(device, n_triangles: int = 1 << 20, size: int = 512,
-                   seed: int = 0):
-    """Synthetic many-triangle stress scene (BASELINE config[4] scale test):
-    a jittered triangle terrain grid under a point light, every triangle
-    visible. The same seed gives the JAX preset's vertices."""
+def terrain_mesh(n_triangles: int, seed: int = 0):
+    """triangle_field's mesh → (float64 vertices [V, 3], int64 indices
+    [n_triangles, 3]): a jittered terrain grid. The same seed gives the JAX
+    preset's vertices."""
     rng = np.random.default_rng(seed)
     g = int(np.ceil(np.sqrt(n_triangles / 2)))
     xs = np.linspace(-10, 10, g + 1)
@@ -94,7 +93,14 @@ def triangle_field(device, n_triangles: int = 1 << 20, size: int = 512,
     d = vid[:-1, 1:].ravel()
     idx = np.concatenate(
         [np.stack([a, b_, c], -1), np.stack([a, c, d], -1)])[:n_triangles]
+    return verts, idx
 
+
+def triangle_field(device, n_triangles: int = 1 << 20, size: int = 512,
+                   seed: int = 0):
+    """Synthetic many-triangle stress scene (BASELINE config[4] scale test):
+    terrain_mesh under a point light, every triangle visible."""
+    verts, idx = terrain_mesh(n_triangles, seed)
     sb = SceneBuilder()
     m = sb.matte((0.55, 0.55, 0.6))
     sb.triangle_mesh(verts, idx, material=m)
