@@ -117,10 +117,39 @@ The front end (pbrt files and the raytrace-tpu-torch CLI):
                 headline's paths: K6-K9 and K2 launches, overflow 0, the
                 frame against render_photon on the parsed scene and the
                 preset's frame as in phase cli
+Edge gradients (raytrace_tpu_torch/diff/edges.py), on the scenes of
+tests/test_edges.py and tests/test_penumbra.py (tests/torch_edge_scenes.py):
+ 19. edges_reference  the CPU twin tests' 32×32 calls on the card against
+                the same calls on the CPU: shadow_boundary_image_grad (quad
+                with rigid and per-endpoint velocities, cube with its
+                silhouette mask, in-view cube with its box),
+                primary_boundary_image_grad, area_shadow_boundary_image_grad
+                and joint_loss_and_grad; each within the CPU tests' bounds
+                plus what two card runs of it differ by
+ 20. edges      at 512×512: each estimator against central differences of
+                render_simple (spp 16) under a fixed random weighting — the
+                quad out of view (256 samples an edge, within 0.25), the
+                in-view cube's shadow plus primary terms (within 0.25, and
+                closer than the shadow term alone), the penumbra (16 light
+                points, within 0.3), one joint_loss_and_grad step under the
+                disk light (θ-gradient against FD of its loss, within 0.3)
+                and the quad estimator against FD of render_photon at
+                262,144 paths (within 0.35, K2); per estimator the median of
+                5 calls, K1's calls by route and launches per call, and the
+                largest difference between two runs
+ 21. edges_large  a closed 5,120-triangle icosphere as the quad scene's
+                occluder: shadow_boundary_image_grad over its 7,680 edges
+                with the light's silhouette mask, 64 samples an edge,
+                through the epoch engine (K8, K9) on the scene with
+                clusters and through K1 on the same mesh built without them,
+                the two within the CPU tests' bounds plus their run-to-run
+                differences; the median of 3 calls, K1 and K6-K9 launches
+                per call, peak memory; one translation_loss_and_grad (its
+                render on K6, K7; its estimator on K8, K9)
 The large-scene path (BASELINE config[4], 4,194,304 triangles):
- 19. build_large  host time of triangle_field(1 << 22, 512): the SAH build,
+ 22. build_large  host time of triangle_field(1 << 22, 512): the SAH build,
                 the cluster set and the upload; node and cluster counts
- 20. k8, k9     K8 (epoch cull) and K9 (subtile Möller–Trumbore) against
+ 23. k8, k9     K8 (epoch cull) and K9 (subtile Möller–Trumbore) against
                 their plain versions on the frame's own launches, captured
                 from the epoch engine, a row per epoch: the camera launch
                 (262,144 rays) in full and the photon emission launch
@@ -131,9 +160,9 @@ The large-scene path (BASELINE config[4], 4,194,304 triangles):
                 work beside the bound on all tests; K9 also on the camera
                 list shifted by one job and shuffled, K8 also on the
                 adversarial inputs of tests/test_torch_epoch_precull.py
- 21. engine     the epoch engine against the BVH traversal on the camera
+ 24. engine     the epoch engine against the BVH traversal on the camera
                 launch: t within 1e-5, idx differences counted, overflow 0
- 22. k6, k7     K6 (tile cull) and K7 (pair Möller–Trumbore) against their
+ 25. k6, k7     K6 (tile cull) and K7 (pair Möller–Trumbore) against their
                 plain versions on every call of one run_triangle_field frame
                 (its camera and shadow launches, captured from the cluster
                 engine): K6's mask in full, with the tiles its exact
@@ -149,13 +178,13 @@ The large-scene path (BASELINE config[4], 4,194,304 triangles):
                 registers (k7_sass), each launch's pairs per tile and work
                 items, and a bound on the work its function needs beside the
                 bound on all tests
- 23. cluster_engine  the cluster engine against the epoch engine on the same
+ 26. cluster_engine  the cluster engine against the epoch engine on the same
                 two launches: overflow 0, flips and t bounded, idx
                 differences counted, each engine timed per launch
- 24. large_simple  render_simple at bench.py run_triangle_field's settings
+ 27. large_simple  render_simple at bench.py run_triangle_field's settings
                 (512², 1 spp) on the same scene: a warm-up and 3 frames,
                 every launch coherent, so K6 and K7 and no K8 or K9
- 25. large      render_photon at bench.py run_combined's settings (2^22
+ 28. large      render_photon at bench.py run_combined's settings (2^22
                 paths, 16.8M slots): a 32×32 triangle_field(2048) frame on
                 the card against the CPU's, the warm-up frame's K2 launch
                 held against its plain version (a k2 line, launch large,
@@ -194,7 +223,7 @@ import raytrace_tpu_torch
 from raytrace_tpu_torch import cli, load_pbrt
 from raytrace_tpu_torch.core import prng
 from raytrace_tpu_torch.core.config import RenderConfig
-from raytrace_tpu_torch.diff import optim
+from raytrace_tpu_torch.diff import edges, optim
 from raytrace_tpu_torch.diff import render as diff
 from raytrace_tpu_torch.ops import bvh as bvh_ops
 from raytrace_tpu_torch.ops import cluster_intersect as ci
@@ -237,6 +266,19 @@ K5_PATHS = 1 << 16
 CORNELL_PBRT = Path(__file__).resolve().parent / "examples" / "cornell.pbrt"
 PBRT_ATOL = 1e-6
 PBRT_LARGE_TRIS = 1 << 16
+# edge gradients: the scenes of tests/test_edges.py and tests/test_penumbra.py
+# at the headline's width, their FD renders at 16 samples a pixel; the quad
+# cases of the 32×32 card-vs-CPU check at θ = 0.03, as the CPU twin tests
+# take them (at θ = 0 a shadow edge lies on a pixel boundary); the GI check
+# at the headline's photon paths; the icosphere's edges sampled 64 times
+EDGE_SPP = 16
+EDGE_REF_THETA = 0.03
+EDGE_GI_PATHS = 1 << 18
+EDGE_LARGE_K = 64
+# render_simple's cluster-engine capacity on the icosphere scene, in rounds
+# of 2^17 (tile, cluster) pairs: one round dropped ~97,000 pairs of each
+# ~228,000-pair launch at 512² (its overflow warning asks for more rounds)
+EDGE_LARGE_ROUNDS = 4
 # BASELINE config[0] as examples/render_sphere_plane.py renders it
 SIMPLE = dict(width=256, height=256, spp=4, scene_epsilon=1e-3)
 N_RAYS = 1 << 18
@@ -1725,6 +1767,380 @@ def phase_pbrt_large(dev, card, tmp):
          image_mean=float(got.mean()))
 
 
+# ---------------------------------------------------------------------------
+# Edge gradients (raytrace_tpu_torch/diff/edges.py)
+# ---------------------------------------------------------------------------
+
+def edge_scenes():
+    """tests/torch_edge_scenes.py: the scenes of the edge-gradient tests on
+    the port's builder, an icosphere, and the bound `dimg_check` the CPU
+    tests hold the port to (numpy and the port only)."""
+    path = Path(__file__).resolve().parent / "tests" / "torch_edge_scenes.py"
+    spec = importlib.util.spec_from_file_location("edge_scenes", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.tensor(np.asarray(a, np.float32), device=device)
+
+
+def _edge_reference_calls(es, size=32):
+    """The 32×32 calls of tests/test_torch_edges.py and
+    tests/test_torch_penumbra.py → {name: fn(device) → dimg}."""
+    theta = EDGE_REF_THETA
+    cfg = RenderConfig(width=size, height=size, spp=1, scene_epsilon=1e-3)
+    pcfg = dataclasses.replace(cfg, max_light_samples=es.N_LIGHT)
+    vel_ends = np.random.default_rng(7).normal(size=(4, 2, 3)).astype(
+        np.float32)
+
+    def quad(vel):
+        def call(device):
+            e0, e1 = edges.quad_boundary_edges(
+                _tensor(es.occ_corners(theta), device))
+            return edges.shadow_boundary_image_grad(
+                es.quad_scene(device, theta), es.camera(device, size), cfg,
+                e0, e1, vel, samples_per_edge=64)
+        return call
+
+    def cube(in_view):
+        def call(device):
+            scene, v, f = (es.in_view_cube_scene(device, 0.0) if in_view
+                           else es.cube_scene(device, theta))
+            verts = _tensor(v, device)
+            e0, e1, mask = edges.silhouette_edges(verts, f,
+                                                  scene.lights.o[0])
+            aabb = ((verts.amin(0), verts.amax(0)) if in_view else None)
+            return edges.shadow_boundary_image_grad(
+                scene, es.camera(device, size), cfg, e0, e1, es.X,
+                samples_per_edge=64, edge_mask=mask, occluder_aabb=aabb)
+        return call
+
+    def primary(device):
+        scene, v, f = es.in_view_cube_scene(device, 0.0)
+        cam = es.camera(device, size)
+        e0, e1, mask, fn = edges.silhouette_edges_full(
+            _tensor(v, device), f, cam.camera_to_world[:, 3])
+        return edges.primary_boundary_image_grad(
+            scene, cam, cfg, e0, e1, es.X, samples_per_edge=64,
+            edge_mask=mask, front_normal=fn, front_mat=1)
+
+    def area(device):
+        verts = es.penumbra_base_verts() + theta * es.X
+        return edges.area_shadow_boundary_image_grad(
+            es.penumbra_scene(device, verts), es.camera(device, size), pcfg,
+            verts, es.QUAD_FACES, es.X, samples_per_edge=64,
+            n_light_samples=es.N_LIGHT)
+
+    return {"shadow_quad": quad(es.X), "shadow_quad_per_endpoint":
+            quad(vel_ends), "shadow_cube_mask": cube(False),
+            "shadow_in_view_aabb": cube(True),
+            "primary_front_normal": primary, "area": area}
+
+
+def _joint_reference_call(es, device, size=32):
+    """tests/test_torch_penumbra.py's joint_loss_and_grad under the disk
+    light → (loss, g kd, g intensity, g_theta, image) as numpy."""
+    target = _tensor(np.random.default_rng(4).uniform(
+        0.0, 0.3, (size, size, 3)), device)
+    build = es.penumbra_builder(device)
+    base = es.penumbra_base_verts()
+    s0 = build(_tensor(base, device))
+    params = diff.SceneParams(kd=s0.materials.kd,
+                              intensity=s0.lights.intensity)
+    cfg = RenderConfig(width=size, height=size, spp=4, scene_epsilon=1e-3,
+                       max_light_samples=es.N_LIGHT)
+    loss, g, g_theta, img = edges.joint_loss_and_grad(
+        params, EDGE_REF_THETA, es.X, base, es.QUAD_FACES, build,
+        es.camera(device, size), cfg, target, prng.PRNGKey(23, device),
+        samples_per_edge=64, n_light_samples=8)
+    return tuple(_host(x) for x in (loss, g.kd, g.intensity, g_theta, img))
+
+
+def phase_edges_reference(dev, card, es):
+    """The CPU twin tests' 32×32 edge-gradient calls on the card against the
+    same calls on the CPU: each within the CPU tests' bounds plus what two
+    card runs of it differ by."""
+    rows = {}
+    for name, call in _edge_reference_calls(es).items():
+        a, b = _host(call(dev)), _host(call(dev))
+        rows[name] = dict(es.dimg_check(a, _host(call("cpu")),
+                                        spread=np.abs(a - b)),
+                          run_to_run_max_abs=float(np.abs(a - b).max()))
+    a, b = (_joint_reference_call(es, dev), _joint_reference_call(es, dev))
+    want = _joint_reference_call(es, "cpu")
+    joint = {}
+    for name, x, y, w in zip(("loss", "g_kd", "g_intensity", "g_theta",
+                              "image"), a, b, want):
+        # as the CPU tests hold them: the image to relative L1, a gradient
+        # array to rtol and atol of its largest entry, a scalar to rtol
+        spread = np.abs(x - y)
+        err = np.abs(x - w)
+        if name == "image":
+            ok = err.sum() <= es.REL_L1 * np.abs(w).sum() + spread.sum()
+        else:
+            atol = np.abs(w).max() if w.ndim else 0.0
+            ok = bool((err <= es.SCALAR_REL * (np.abs(w) + atol)
+                       + spread).all())
+        if not (ok and np.isfinite(x).all()):
+            raise AssertionError(f"edges_reference joint {name}: card "
+                                 f"{x} against the CPU's {w}")
+        joint[name] = dict(max_abs_err=float(err.max()),
+                           run_to_run_max_abs=float(spread.max()))
+    emit("edges_reference", nvidia_smi=card, size=32, calls=rows,
+         joint=joint)
+
+
+def _timed_calls(fn, calls: int):
+    """fn() `calls` times on the host clock, each around work that ends in
+    torch.cuda.synchronize() → (seconds, results)."""
+    times, outs = [], []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        outs.append(fn())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, outs
+
+
+@contextlib.contextmanager
+def k1_routes():
+    """K1's calls by route as phase main counts them (closest hit, any-hit)
+    and its launches, over the block → the dict yielded, filled on exit."""
+    counts = {}
+    ti.closest_hit.launches = 0
+    with recording(ti, "intersect_triangles") as closest, \
+            recording(ti, "occluded_triangles") as any_hit:
+        yield counts
+        torch.cuda.synchronize()
+    counts.update(closest=len(closest), any_hit=len(any_hit),
+                  launches=ti.closest_hit.launches)
+
+
+def _estimator(fn, calls: int = 5):
+    """One call with K1's calls counted by route, then `calls` timed calls
+    → (the first timed result, its row: seconds, their median, K1 per call,
+    the largest difference between two runs)."""
+    with k1_routes() as k1:
+        fn()
+    times, outs = _timed_calls(fn, calls)
+    return outs[0], dict(s=times, s_median=statistics.median(times),
+                         k1_per_call=k1, run_to_run_max_abs=float(
+                             (outs[0] - outs[1]).abs().max()))
+
+
+def _fd_check(what: str, fd: float, ad: float, bound: float) -> dict:
+    """tests/test_edges.py's check: the loss moves, the estimator has FD's
+    sign, |fd − ad| ≤ bound·max(|fd|, |ad|)."""
+    err = abs(fd - ad) / max(abs(fd), abs(ad))
+    if not (abs(fd) > 1e-5 and np.sign(fd) == np.sign(ad)
+            and err <= bound):
+        raise AssertionError(f"edges {what}: FD {fd} against the "
+                             f"estimator's {ad} (bound {bound})")
+    return dict(fd=fd, ad=ad, rel_err=err, bound=bound)
+
+
+def phase_edges(dev, card, es, size=SIZE):
+    """The scenes of tests/test_edges.py and tests/test_penumbra.py at the
+    headline's width: each estimator against central differences of the
+    render, timed (median of 5 calls, K1 by route per call, run-to-run
+    difference); a joint_loss_and_grad step (median of 3); and the GI check
+    through render_photon (K2)."""
+    cam = es.camera(dev, size)
+    w3, w5 = (_tensor(es.weights(size, s), dev) for s in (3, 5))
+    cfg = RenderConfig(width=size, height=size, spp=EDGE_SPP,
+                       scene_epsilon=1e-3)
+    pcfg = dataclasses.replace(cfg, max_light_samples=es.N_LIGHT)
+    key, pkey = prng.PRNGKey(17, dev), prng.PRNGKey(23, dev)
+    central = lambda loss_at, h: (loss_at(h) - loss_at(-h)) / (2 * h)
+    weighted = lambda img, w: float(torch.mean(img * w))
+    render = lambda scene, c=cfg, k=key: simple.render_simple(
+        scene, cam, c, k, jitter=True)
+    rows, fd = {}, {}
+
+    # the quad out of view, point light
+    scene = es.quad_scene(dev, 0.0)
+    e0, e1 = edges.quad_boundary_edges(_tensor(es.occ_corners(0.0), dev))
+    d_quad, rows["shadow_quad"] = _estimator(
+        lambda: edges.shadow_boundary_image_grad(
+            scene, cam, cfg, e0, e1, es.X, samples_per_edge=256))
+    fd["quad"] = _fd_check("quad", central(
+        lambda th: weighted(render(es.quad_scene(dev, th)), w3), 0.06),
+        weighted(d_quad, w3), 0.25)
+
+    # the cube in view: shadow term plus primary term
+    scene, v, f = es.in_view_cube_scene(dev, 0.0)
+    verts = _tensor(v, dev)
+    aabb = (verts.amin(0), verts.amax(0))
+    e0, e1, mask = edges.silhouette_edges(verts, f, scene.lights.o[0])
+    d_shadow, rows["shadow_in_view"] = _estimator(
+        lambda: edges.shadow_boundary_image_grad(
+            scene, cam, cfg, e0, e1, es.X, samples_per_edge=256,
+            edge_mask=mask, occluder_aabb=aabb))
+    e0, e1, mask, fn = edges.silhouette_edges_full(
+        verts, f, cam.camera_to_world[:, 3])
+    d_prim, rows["primary"] = _estimator(
+        lambda: edges.primary_boundary_image_grad(
+            scene, cam, cfg, e0, e1, es.X, samples_per_edge=256,
+            edge_mask=mask, front_normal=fn, front_mat=1))
+    fd_cube = central(lambda th: weighted(
+        render(es.in_view_cube_scene(dev, th)[0]), w5), 0.05)
+    ad_shadow = weighted(d_shadow, w5)
+    fd["in_view_cube"] = _fd_check("in_view_cube", fd_cube,
+                                   weighted(d_shadow + d_prim, w5), 0.25)
+    fd["in_view_cube"]["ad_shadow_only"] = ad_shadow
+    if not abs(fd_cube - fd["in_view_cube"]["ad"]) < abs(fd_cube
+                                                          - ad_shadow):
+        raise AssertionError(f"edges in_view_cube: the primary term does "
+                             f"not help: {fd['in_view_cube']}")
+
+    # the penumbra under the disk light
+    base = es.penumbra_base_verts()
+    scene = es.penumbra_scene(dev, base)
+    d_pen, rows["area"] = _estimator(
+        lambda: edges.area_shadow_boundary_image_grad(
+            scene, cam, pcfg, base, es.QUAD_FACES, es.X,
+            samples_per_edge=128, n_light_samples=es.N_LIGHT))
+    fd["penumbra"] = _fd_check("penumbra", central(
+        lambda th: weighted(render(es.penumbra_scene(dev, base + th * es.X),
+                                   pcfg, pkey), w5), 0.08),
+        weighted(d_pen, w5), 0.3)
+
+    # one joint_loss_and_grad step under the disk light
+    target = render(es.penumbra_scene(dev, base + 0.3 * es.X), pcfg, pkey)
+    params = diff.SceneParams(kd=scene.materials.kd,
+                              intensity=scene.lights.intensity)
+    joint = lambda th: edges.joint_loss_and_grad(
+        params, th, es.X, base, es.QUAD_FACES, es.penumbra_builder(dev),
+        cam, pcfg, target, pkey, samples_per_edge=128,
+        n_light_samples=es.N_LIGHT, jitter=True)
+    with k1_routes() as k1:
+        joint(0.0)
+    times, outs = _timed_calls(lambda: joint(0.0), 3)
+    _, g_params, g_theta, _ = outs[0]
+    fd["joint"] = _fd_check("joint", central(
+        lambda th: float(joint(th)[0]), 0.08), float(g_theta), 0.3)
+    if not (bool(torch.isfinite(g_params.kd).all())
+            and bool(torch.isfinite(g_params.intensity).all())
+            and float(g_params.kd.abs().sum()) > 0.0):
+        raise AssertionError(f"edges joint: g_params {g_params}")
+    rows["joint"] = dict(s=times, s_median=statistics.median(times),
+                         k1_per_call=k1, run_to_run_max_abs=float(
+                             (outs[0][2] - outs[1][2]).abs()))
+
+    # GI: FD of render_photon against the direct-only quad estimator
+    gcfg = RenderConfig(width=size, height=size, spp=EDGE_SPP,
+                        scene_epsilon=1e-3, photon_paths=EDGE_GI_PATHS,
+                        max_photon_depth=4, max_photon_bounces=8,
+                        initial_radius2=0.25)
+    rg.rowspan_S.launches = 0
+    overflow = []
+
+    def gi_loss(th):
+        img, aux = photon.render_photon(es.quad_scene(dev, th), cam, gcfg,
+                                        key, jitter=True, return_aux=True)
+        overflow.append(int(aux["gather_overflow"]))
+        return weighted(img, w3)
+
+    fd["gi"] = _fd_check("gi", central(gi_loss, 0.08), weighted(d_quad, w3),
+                         0.35)
+    k2 = rg.rowspan_S.launches
+    if k2 < 2 or any(overflow):
+        raise AssertionError(f"edges gi: {k2} K2 launches, gather "
+                             f"overflow {overflow}")
+    fd["gi"].update(photon_paths=EDGE_GI_PATHS, k2_launches=k2)
+    emit("edges", nvidia_smi=card, size=size, spp=EDGE_SPP, fd=fd,
+         estimators=rows)
+
+
+def phase_edges_large(dev, card, es, size=SIZE, subdivisions=4):
+    """A closed icosphere of 20·4^subdivisions triangles as the occluder of
+    the quad scene: shadow_boundary_image_grad over all its edges with the
+    light's silhouette mask, through the epoch engine (K8, K9) on the
+    scene with clusters, held against the same call on the scene built
+    without them (K1 over every triangle); then one
+    translation_loss_and_grad, whose render takes the cluster engine (K6,
+    K7)."""
+    v, f = es.icosphere(subdivisions, 0.5, (1.7, 0.0, 3.0))
+    scene = es.occluder_scene(dev, v, f)
+    flat = es.occluder_scene(dev, v, f, use_bvh=False)
+    if scene.clusters is None or flat.clusters is not None:
+        raise AssertionError("edges_large: the scenes' routes are not "
+                             "clusters and dense")
+    cam = es.camera(dev, size)
+    cfg = RenderConfig(width=size, height=size, spp=1, scene_epsilon=1e-3,
+                       intersect_rounds=EDGE_LARGE_ROUNDS)
+    verts = _tensor(v, dev)
+    e0, e1, mask = edges.silhouette_edges(verts, f, scene.lights.o[0])
+    silhouette = int(mask.sum())
+    call = lambda s: edges.shadow_boundary_image_grad(
+        s, cam, cfg, e0, e1, es.X, samples_per_edge=EDGE_LARGE_K,
+        edge_mask=mask)
+    runs = {}
+    for name, s in (("clusters", scene), ("dense", flat)):
+        call(s)
+        torch.cuda.synchronize()
+        _reset_kernel_counts()
+        ti.closest_hit.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        times, outs = _timed_calls(lambda: call(s), 3)
+        counts = dict(_kernel_counts(), k1=ti.closest_hit.launches)
+        counts.pop("k2")
+        runs[name] = dict(s=times, s_median=statistics.median(times),
+                          launches_per_call={k: c / 3 for k, c in
+                                             counts.items()},
+                          peak_bytes=torch.cuda.max_memory_allocated(),
+                          out=outs)
+    c, d = runs["clusters"], runs["dense"]
+    lc, ld = c["launches_per_call"], d["launches_per_call"]
+    if (min(lc["k8"], lc["k9"]) <= 0 or lc["k6"] + lc["k7"] + lc["k1"]
+            or ld["k1"] <= 0 or ld["k6"] + ld["k7"] + ld["k8"] + ld["k9"]):
+        raise AssertionError(f"edges_large: launches {lc} (clusters), "
+                             f"{ld} (dense)")
+    spread = sum((r["out"][0] - r["out"][1]).abs() for r in (c, d))
+    check = es.dimg_check(_host(c["out"][0]), _host(d["out"][0]),
+                          spread=_host(spread))
+    for r in (c, d):
+        r["run_to_run_max_abs"] = float(
+            (r["out"][0] - r["out"][1]).abs().max())
+        del r["out"]
+
+    # one translation_loss_and_grad step against a target at θ = 0.1
+    build = es.mesh_builder(dev, f)
+    key = prng.PRNGKey(17, dev)
+    target = simple.render_simple(build(verts + 0.1 * _tensor(es.X, dev)),
+                                  cam, cfg, key)
+    _reset_kernel_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        loss, g, img = edges.translation_loss_and_grad(
+            0.0, es.X, v, f, build, cam, cfg, target, key,
+            samples_per_edge=EDGE_LARGE_K)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    step = _kernel_counts()
+    overflows = [str(w.message) for w in caught
+                 if "overflow" in str(w.message)]
+    if (overflows or min(step["k6"], step["k7"], step["k8"], step["k9"]) <= 0
+            or not math.isfinite(float(g)) or float(g) == 0.0):
+        raise AssertionError(f"edges_large translation step: launches "
+                             f"{step}, dloss {float(g)}, {overflows}")
+    emit("edges_large", nvidia_smi=card, size=size,
+         triangles=int(scene.tris.v0.shape[0]), occluder_triangles=len(f),
+         edges=int(e0.shape[0]), silhouette_edges=silhouette,
+         samples_per_edge=EDGE_LARGE_K,
+         rays_per_launch=int(e0.shape[0]) * EDGE_LARGE_K,
+         clusters=c, dense=d, against_dense=check,
+         translation_step=dict(s=step_s, launches=step,
+                               loss=float(loss), dloss=float(g)))
+
+
 @contextlib.contextmanager
 def recording(module, name):
     """Swap the function module.<name> (a kernel wrapper or an engine) for
@@ -2614,6 +3030,13 @@ def main() -> None:
         path = phase_pbrt(dev, card, tmp)
         phase_cli(dev, card, path, tmp)
         phase_pbrt_large(dev, card, tmp)
+
+    # edge gradients: card against CPU, the headline width, a large occluder
+    es = edge_scenes()
+    phase_edges_reference(dev, card, es)
+    phase_edges(dev, card, es)
+    phase_edges_large(dev, card, es)
+    torch.cuda.empty_cache()
 
     # the large-scene path: BASELINE config[4]
     lscene, lcam = phase_build_large(dev)

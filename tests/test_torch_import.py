@@ -23,7 +23,7 @@ print(len(names))
 """
 
 
-@pytest.mark.parametrize("what,min_modules", [("package", 49),
+@pytest.mark.parametrize("what,min_modules", [("package", 50),
                                               ("chip_smoke", 1)])
 def test_port_imports_without_jax_or_flax(what, min_modules):
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
