@@ -85,22 +85,52 @@ Phases, one JSON result line each:
  12. train      3 Adam steps of fit at the same settings, from a 1.8×
                 over-bright emitter against the frame rendered at the true
                 parameters
- 13. preview    render_photon_progressive on the same box with 2,048 paths ×
+Multi-device rendering (raytrace_tpu_torch/parallel/), on torch.distributed:
+NCCL refuses two ranks on one card, so with one card NCCL runs
+world 1 in this process and two processes share the card over gloo; no
+scaling is measured
+ 13. sharded_reference  at 32×32, render_photon_sharded and
+                train_step_sharded on world 1 over NCCL against the same
+                calls on the CPU on world 1 over gloo: the frame within
+                1e-3 relative L1, the loss within 1e-4 and the new kd and
+                intensity within 5e-3 relative
+ 14. sharded    render_photon_sharded at the headline on world 1 over NCCL:
+                a warm-up, then 5 frames in turns with render_photon's;
+                finite, not black, overflow 0, K1's and K2's launches per
+                frame equal to phase main's; then the headline over 8
+                waves, wave p's photon map gathered on NCCL's stream
+                while wave p-1 is gathered, with the device time between
+                gather passes (CUDA events); one profiled frame's device
+                busy time; then 5 render_photon frames with no process
+                group alive
+ 15. sharded_train  train_step_sharded at the headline, differentiable:
+                a warm-up and 3 steps in turns with loss_and_grad, beside
+                phase grad's median; loss and parameters finite, the glass
+                row of kd unchanged (its gradient 0), one K3 launch a step
+ 16. sharded_2proc  two processes on the card over gloo (its CUDA
+                all_gather, async all_gather, all_reduce and barrier
+                checked first) at bench.py run_scaling's settings (256²,
+                1 spp, 2^16 paths, 8 bounces, glass ball): the frame within
+                rtol 5e-4 and atol 5e-5 of world 1's over NCCL; one 64×64
+                train step against world 1's
+ 17. scaling    scaling_report at run_scaling's settings on world 1 over
+                NCCL: rays/s at the one count, no efficiency
+ 18. preview    render_photon_progressive on the same box with 2,048 paths ×
                 16 waves (2^13-slot maps, so every wave takes K4): K4 and K2
                 launch counts, the median wave; then 8 waves with a
                 checkpoint, resumed to 16, against the uninterrupted render
- 14. progressive  render_photon_progressive at bench.py run_multiwave's
+ 19. progressive  render_photon_progressive at bench.py run_multiwave's
                 settings (262,144 paths × 8 waves, the row-span route): the
                 steady wave median and the radius trace
- 15. simple     render_simple on the 256×256 sphere and plane (BASELINE
+ 20. simple     render_simple on the 256×256 sphere and plane (BASELINE
                 config[0]): a warm-up, then the median of 5 frames; and a
                 32×32 frame on the card against the CPU's
 The front end (pbrt files and the raytrace-tpu-torch CLI):
- 16. pbrt       examples/cornell.pbrt with a 512×512 Film through load_pbrt
+ 21. pbrt       examples/cornell.pbrt with a 512×512 Film through load_pbrt
                 on the card: every array of the scene and camera against
                 presets.cornell_box (ints equal, floats within 1e-6); the
                 parse's host seconds
- 17. cli        cli.main in this process on that file at the headline's
+ 22. cli        cli.main in this process on that file at the headline's
                 paths: the PFM it writes against render_photon on the
                 parsed scene (bit for bit, or within the spread of 4
                 direct renders, which the line reports) and within 1e-3
@@ -109,7 +139,7 @@ The front end (pbrt files and the raytrace-tpu-torch CLI):
                 render's median of 3; --passes 2 with a checkpoint resumed
                 to 4 against 4 in one call; --renderer simple (K1); and
                 examples/render_pbrt_torch.py as a subprocess
- 18. pbrt_large  triangle_field(1 << 16, 512) written as a pbrt file
+ 23. pbrt_large  triangle_field(1 << 16, 512) written as a pbrt file
                 (floats by repr), parsed on the card: host seconds and
                 tokens/s of the parse apart from the SAH, cluster and
                 upload seconds; the scene's tensors equal to the preset's,
@@ -119,14 +149,14 @@ The front end (pbrt files and the raytrace-tpu-torch CLI):
                 preset's frame as in phase cli
 Edge gradients (raytrace_tpu_torch/diff/edges.py), on the scenes of
 tests/test_edges.py and tests/test_penumbra.py (tests/torch_edge_scenes.py):
- 19. edges_reference  the CPU twin tests' 32×32 calls on the card against
+ 24. edges_reference  the CPU twin tests' 32×32 calls on the card against
                 the same calls on the CPU: shadow_boundary_image_grad (quad
                 with rigid and per-endpoint velocities, cube with its
                 silhouette mask, in-view cube with its box),
                 primary_boundary_image_grad, area_shadow_boundary_image_grad
                 and joint_loss_and_grad; each within the CPU tests' bounds
                 plus what two card runs of it differ by
- 20. edges      at 512×512: each estimator against central differences of
+ 25. edges      at 512×512: each estimator against central differences of
                 render_simple (spp 16) under a fixed random weighting — the
                 quad out of view (256 samples an edge, within 0.25), the
                 in-view cube's shadow plus primary terms (within 0.25, and
@@ -137,7 +167,7 @@ tests/test_edges.py and tests/test_penumbra.py (tests/torch_edge_scenes.py):
                 262,144 paths (within 0.35, K2); per estimator the median of
                 5 calls, K1's calls by route and launches per call, and the
                 largest difference between two runs
- 21. edges_large  a closed 5,120-triangle icosphere as the quad scene's
+ 26. edges_large  a closed 5,120-triangle icosphere as the quad scene's
                 occluder: shadow_boundary_image_grad over its 7,680 edges
                 with the light's silhouette mask, 64 samples an edge,
                 through the epoch engine (K8, K9) on the scene with
@@ -147,9 +177,9 @@ tests/test_edges.py and tests/test_penumbra.py (tests/torch_edge_scenes.py):
                 per call, peak memory; one translation_loss_and_grad (its
                 render on K6, K7; its estimator on K8, K9)
 The large-scene path (BASELINE config[4], 4,194,304 triangles):
- 22. build_large  host time of triangle_field(1 << 22, 512): the SAH build,
+ 27. build_large  host time of triangle_field(1 << 22, 512): the SAH build,
                 the cluster set and the upload; node and cluster counts
- 23. k8, k9     K8 (epoch cull) and K9 (subtile Möller–Trumbore) against
+ 28. k8, k9     K8 (epoch cull) and K9 (subtile Möller–Trumbore) against
                 their plain versions on the frame's own launches, captured
                 from the epoch engine, a row per epoch: the camera launch
                 (262,144 rays) in full and the photon emission launch
@@ -160,9 +190,9 @@ The large-scene path (BASELINE config[4], 4,194,304 triangles):
                 work beside the bound on all tests; K9 also on the camera
                 list shifted by one job and shuffled, K8 also on the
                 adversarial inputs of tests/test_torch_epoch_precull.py
- 24. engine     the epoch engine against the BVH traversal on the camera
+ 29. engine     the epoch engine against the BVH traversal on the camera
                 launch: t within 1e-5, idx differences counted, overflow 0
- 25. k6, k7     K6 (tile cull) and K7 (pair Möller–Trumbore) against their
+ 30. k6, k7     K6 (tile cull) and K7 (pair Möller–Trumbore) against their
                 plain versions on every call of one run_triangle_field frame
                 (its camera and shadow launches, captured from the cluster
                 engine): K6's mask in full, with the tiles its exact
@@ -178,21 +208,23 @@ The large-scene path (BASELINE config[4], 4,194,304 triangles):
                 registers (k7_sass), each launch's pairs per tile and work
                 items, and a bound on the work its function needs beside the
                 bound on all tests
- 26. cluster_engine  the cluster engine against the epoch engine on the same
+ 31. cluster_engine  the cluster engine against the epoch engine on the same
                 two launches: overflow 0, flips and t bounded, idx
                 differences counted, each engine timed per launch
- 27. large_simple  render_simple at bench.py run_triangle_field's settings
+ 32. large_simple  render_simple at bench.py run_triangle_field's settings
                 (512², 1 spp) on the same scene: a warm-up and 3 frames,
                 every launch coherent, so K6 and K7 and no K8 or K9
- 28. large      render_photon at bench.py run_combined's settings (2^22
+ 33. large      render_photon at bench.py run_combined's settings (2^22
                 paths, 16.8M slots): a 32×32 triangle_field(2048) frame on
                 the card against the CPU's, the warm-up frame's K2 launch
                 held against its plain version (a k2 line, launch large,
                 with its job spread, pair tests and bound), 2 frames with K6,
                 K7, K8, K9 and K2 launch counts, and one profiled frame
                 (device busy share, K6-K9 and K2 device ms)
-Then the kernel table as one JSON line, the card line from nvidia-smi, and
-last {"ok": true, "device": {...}}. Any failed check raises, so the script
+Then the kernel table as one JSON line (each kernel's launches on its main
+path and, for K1, K2 and K3, on the sharded paths too, each counted from 0
+over its own run), the card line from nvidia-smi, and last {"ok": true,
+"device": {...}}. Any failed check raises, so the script
 exits non-zero and prints no final line.
 """
 from __future__ import annotations
@@ -218,6 +250,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import raytrace_tpu_torch
 from raytrace_tpu_torch import cli, load_pbrt
@@ -236,6 +269,7 @@ from raytrace_tpu_torch.ops import grid_gather as gg
 from raytrace_tpu_torch.ops import rowspan_gather as rg
 from raytrace_tpu_torch.ops import tri_intersect as ti
 from raytrace_tpu_torch.ops.work_items import work_items
+from raytrace_tpu_torch.parallel import launch, multihost, sharded
 from raytrace_tpu_torch.renderers import common, photon, simple
 from raytrace_tpu_torch.scene import presets
 from raytrace_tpu_torch.scene.camera import generate_rays, pixel_samples
@@ -279,6 +313,17 @@ EDGE_LARGE_K = 64
 # of 2^17 (tile, cluster) pairs: one round dropped ~97,000 pairs of each
 # ~228,000-pair launch at 512² (its overflow warning asks for more rounds)
 EDGE_LARGE_ROUNDS = 4
+# bench.py run_scaling's settings (bench.py:443-448): the sharded frame of
+# phases sharded_2proc and scaling; its train step at 64×64
+SCALING = dict(width=256, height=256, spp=1, scene_epsilon=1e-3,
+               photon_paths=1 << 16, photon_passes=1, max_photon_bounces=8)
+SHARDED_TRAIN_SIZE = 64
+# N ranks against one: the JAX package's own bounds (tests/test_sharded.py)
+SHARD_RTOL, SHARD_ATOL = 5e-4, 5e-5
+TRAIN_LOSS_RTOL, TRAIN_PARAM_RTOL = 1e-4, 5e-3
+TRAIN_KD_ATOL, TRAIN_INTENSITY_ATOL = 1e-5, 1e-4
+# train_step_sharded's default step size
+SHARDED_LR = 0.05
 # BASELINE config[0] as examples/render_sphere_plane.py renders it
 SIMPLE = dict(width=256, height=256, spp=4, scene_epsilon=1e-3)
 N_RAYS = 1 << 18
@@ -1290,6 +1335,373 @@ def phase_train(dev, scene, cam, cfg, steps=3):
          s_per_step=train_s / steps,
          intensity=got.intensity.tolist(),
          true_intensity=true.intensity.tolist())
+
+
+@contextlib.contextmanager
+def world_of_one(backend: str):
+    """A process group of this process alone (file:// rendezvous),
+    destroyed on leaving."""
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if backend == "nccl" else None)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(backend, init_method=f"file://{tmp}/store",
+                                world_size=1, rank=0, device_id=device)
+        try:
+            yield
+        finally:
+            dist.destroy_process_group()
+
+
+def _rel_l1(a, b) -> float:
+    return float((a - b).abs().sum() / b.abs().sum())
+
+
+def _train_check(what: str, got: tuple, want: tuple) -> dict:
+    """(loss, kd, intensity) against another run's within the CPU tests'
+    bounds (tests/test_torch_sharded.py) → the relative errors."""
+    loss_rel = abs(got[0] - want[0]) / abs(want[0])
+    ok = (math.isfinite(got[0]) and loss_rel <= TRAIN_LOSS_RTOL
+          and torch.allclose(got[1], want[1], rtol=TRAIN_PARAM_RTOL,
+                             atol=TRAIN_KD_ATOL)
+          and torch.allclose(got[2], want[2], rtol=TRAIN_PARAM_RTOL,
+                             atol=TRAIN_INTENSITY_ATOL))
+    out = dict(loss_rel=loss_rel, kd_rel_l1=_rel_l1(got[1], want[1]),
+               intensity_rel_l1=_rel_l1(got[2], want[2]))
+    if not ok:
+        raise AssertionError(f"{what}: train step off: {out}")
+    return out
+
+
+def phase_sharded_reference(dev):
+    """render_photon_sharded and train_step_sharded at 32×32: world 1 over
+    NCCL on the card against world 1 over gloo on the CPU."""
+    cfg = RenderConfig(**dict(BENCH, width=32, height=32,
+                              photon_paths=1 << 12))
+    out = []
+    for device, backend in ((dev, "nccl"), (torch.device("cpu"), "gloo")):
+        with world_of_one(backend):
+            mesh = sharded.make_mesh(device.type)
+            scene, cam = presets.cornell_box(device, 32, ball="glass")
+            key = prng.PRNGKey(0, device)
+            img = sharded.render_photon_sharded(scene, cam, cfg, key, mesh)
+            loss, new = sharded.train_step_sharded(
+                diff.extract_params(scene),
+                torch.zeros((32, 32, 3), device=device), scene, cam,
+                grad_config(cfg), key, mesh)
+        out.append((img.cpu(), float(loss), new.kd.cpu(),
+                    new.intensity.cpu()))
+    (gpu, *g_train), (cpu, *c_train) = out
+    rel_l1 = _rel_l1(gpu, cpu)
+    off = float(((gpu - cpu).abs().amax(-1)
+                 > 1e-3 * cpu.amax(-1).clamp(min=1.0)).float().mean())
+    if not (torch.isfinite(gpu).all() and rel_l1 <= REF_REL_L1
+            and off <= REF_OFF_FRAC):
+        raise AssertionError(f"sharded 32x32 frame: rel L1 {rel_l1}, {off} "
+                             "of the pixels off against the CPU")
+    train = _train_check("sharded_reference", tuple(g_train), tuple(c_train))
+    emit("sharded_reference", size=32, world=1, backends=["nccl", "gloo"],
+         rel_l1=rel_l1, off_pixel_frac=off, train=train)
+
+
+@contextlib.contextmanager
+def wave_events(module, name):
+    """Record a CUDA event on the current stream at each call of
+    module.<name> (no synchronize) → the list of events."""
+    orig = getattr(module, name)
+    events = []
+
+    def timed(*args, **kw):
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        return orig(*args, **kw)
+
+    setattr(module, name, timed)
+    try:
+        yield events
+    finally:
+        setattr(module, name, orig)
+
+
+def phase_sharded(dev, scene, cam, cfg, main_launches, main_frames,
+                  frames=5):
+    """render_photon_sharded at the headline on world 1 over NCCL: frames in
+    turns with render_photon's, launches against phase main's, the 8-wave
+    headline with the device time between gather passes, one profiled
+    frame; then render_photon's frames with no process group alive."""
+    with world_of_one("nccl"):
+        mesh = sharded.make_mesh("cuda")
+        sharded.render_photon_sharded(scene, cam, cfg, prng.PRNGKey(0, dev),
+                                      mesh)
+        torch.cuda.synchronize()
+        times, plain, auxes = [], [], []
+        launches = {"k1": 0, "k2": 0}
+        for i in range(frames):
+            ti.closest_hit.launches = 0
+            rg.rowspan_S.launches = 0
+            t0 = time.perf_counter()
+            img, aux = sharded.render_photon_sharded(
+                scene, cam, cfg, prng.PRNGKey(i + 1, dev), mesh,
+                return_aux=True)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launches["k1"] += ti.closest_hit.launches
+            launches["k2"] += rg.rowspan_S.launches
+            auxes.append(aux)
+            t0 = time.perf_counter()
+            photon.render_photon(scene, cam, cfg, prng.PRNGKey(i + 1, dev))
+            torch.cuda.synchronize()
+            plain.append(time.perf_counter() - t0)
+        mcfg = RenderConfig(**MULTIWAVE)
+        rg.rowspan_S.launches = 0
+        with wave_events(photon, "gathering_pass") as events:
+            t0 = time.perf_counter()
+            mimg, maux = sharded.render_photon_sharded(
+                scene, cam, mcfg, prng.PRNGKey(0, dev), mesh,
+                return_aux=True)
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            torch.cuda.synchronize()
+            multi_s = time.perf_counter() - t0
+        multi_k2 = rg.rowspan_S.launches
+        busy_s, _, _, device_ops = profiled(
+            lambda: sharded.render_photon_sharded(
+                scene, cam, cfg, prng.PRNGKey(frames + 1, dev), mesh))
+    # render_photon again with no process group alive: NCCL's threads gone
+    alone = []
+    for i in range(frames):
+        t0 = time.perf_counter()
+        photon.render_photon(scene, cam, cfg, prng.PRNGKey(i + 1, dev))
+        torch.cuda.synchronize()
+        alone.append(time.perf_counter() - t0)
+    per_frame = {k: v / frames for k, v in launches.items()}
+    for what, im, ax in (("sharded", img, auxes), ("sharded 8 waves", mimg,
+                                                    [maux])):
+        if im.shape != (SIZE, SIZE, 3) or not bool(torch.isfinite(im).all()):
+            raise AssertionError(f"{what}: image not finite or mis-shaped")
+        if not float(im.mean()) > 0.0:
+            raise AssertionError(f"{what}: black image")
+        for a in ax:
+            if a["gather_overflow"] or a["pair_overflow"] or \
+                    a["valid_photons"] <= 0:
+                raise AssertionError(f"{what}: counters {a}")
+    main_per_frame = {k: main_launches[k] / main_frames for k in launches}
+    if per_frame != main_per_frame:
+        raise AssertionError(f"sharded: launches a frame {per_frame}, phase "
+                             f"main's {main_per_frame}")
+    if multi_k2 != mcfg.photon_passes:
+        raise AssertionError(f"sharded 8 waves: {multi_k2} K2 launches")
+    wave_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:] + [end])]
+    frame_s = statistics.median(times)
+    emit("sharded", size=SIZE, world=1, backend="nccl",
+         photon_paths=cfg.photon_paths, frames=frames, frame_s=times,
+         frame_s_median=frame_s, render_photon_frame_s=plain,
+         render_photon_frame_s_median=statistics.median(plain),
+         render_photon_no_group_frame_s=alone,
+         render_photon_no_group_frame_s_median=statistics.median(alone),
+         profiled_frame=dict(device_busy_s=busy_s, device_ops=device_ops,
+                             device_idle_frac=1.0 - busy_s / frame_s),
+         rays_per_s=SIZE * SIZE * cfg.spp / frame_s,
+         launches=launches, launches_per_frame=per_frame,
+         gather_overflow=0, pair_overflow=0,
+         valid_photons=auxes[-1]["valid_photons"],
+         image_mean=float(img.mean()),
+         multiwave=dict(waves=mcfg.photon_passes, wall_s=multi_s,
+                        gather_pass_to_next_ms=wave_ms, k2_launches=multi_k2,
+                        valid_photons=maux["valid_photons"],
+                        image_mean=float(mimg.mean())))
+    return launches
+
+
+def phase_sharded_train(dev, scene, cam, cfg, grad_step_s, steps=3):
+    """train_step_sharded at the headline on world 1 over NCCL: a warm-up,
+    then `steps` steps with keys folded from key 0 in turns with
+    loss_and_grad's, beside phase grad's median."""
+    gcfg = grad_config(cfg)
+    params = diff.extract_params(scene)
+    target = torch.zeros((SIZE, SIZE, 3), device=dev)
+    key = prng.PRNGKey(0, dev)
+    times, plain = [], []
+    with world_of_one("nccl"), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        mesh = sharded.make_mesh("cuda")
+        sharded.train_step_sharded(params, target, scene, cam, gcfg, key,
+                                   mesh, lr=SHARDED_LR)
+        torch.cuda.synchronize()
+        launches = {"k1": 0, "k2": 0, "k3": 0}
+        ls = common.static_light_samples(scene, gcfg)
+        for i in range(steps):
+            ti.closest_hit.launches = 0
+            rg.rowspan_S.launches = 0
+            rg.rowspan_S_bwd.launches = 0
+            t0 = time.perf_counter()
+            loss, new = sharded.train_step_sharded(
+                params, target, scene, cam, gcfg, prng.fold_in(key, i + 1),
+                mesh, lr=SHARDED_LR)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            launches["k1"] += ti.closest_hit.launches
+            launches["k2"] += rg.rowspan_S.launches
+            launches["k3"] += rg.rowspan_S_bwd.launches
+            t0 = time.perf_counter()
+            diff.loss_and_grad(params, target, scene, cam, gcfg,
+                               prng.fold_in(key, i + 1), ls, False)
+            torch.cuda.synchronize()
+            plain.append(time.perf_counter() - t0)
+    overflows = [str(w.message) for w in caught
+                 if "overflow" in str(w.message)]
+    g_kd = (params.kd - new.kd) / SHARDED_LR
+    g_int = (params.intensity - new.intensity) / SHARDED_LR
+    glass = scene.materials.mtype == GLASS
+    if launches["k3"] != steps or min(launches.values()) <= 0:
+        raise AssertionError(f"sharded_train: launches {launches}")
+    if not (math.isfinite(float(loss)) and torch.isfinite(g_kd).all()
+            and torch.isfinite(g_int).all()
+            and float(g_kd.abs().sum()) > 0.0):
+        raise AssertionError("sharded_train: loss or gradients not finite, "
+                             "or kd's zero")
+    if not torch.equal(new.kd[glass], params.kd[glass]):
+        raise AssertionError(f"sharded_train: glass kd moved {g_kd[glass]}")
+    if overflows:
+        raise AssertionError(f"sharded_train: overflow: {overflows}")
+    step_s = statistics.median(times)
+    emit("sharded_train", size=SIZE, world=1, backend="nccl", steps=steps,
+         step_s=times, step_s_median=step_s,
+         loss_and_grad_step_s=plain,
+         loss_and_grad_step_s_median=statistics.median(plain),
+         grad_step_s_median=grad_step_s,
+         loss=float(loss), grad_kd_abs_sum=float(g_kd.abs().sum()),
+         grad_intensity=g_int.tolist(), launches=launches)
+    return launches
+
+
+def gloo_cuda_collectives(dev) -> dict:
+    """The collectives the sharded path runs, on CUDA tensors over the
+    default (gloo) group, each checked for its result → {name: True}.
+    A collective gloo lacks for CUDA tensors raises, naming it."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    x = torch.full((5,), float(rank + 1), device=dev)
+    want = torch.cat([torch.full((5,), float(r + 1), device=dev)
+                      for r in range(world)])
+
+    def all_gather():
+        out = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(out, x)
+        return torch.equal(torch.cat(out), want)
+
+    def all_gather_async():
+        out = [torch.empty_like(x) for _ in range(world)]
+        dist.all_gather(out, x, async_op=True).wait()
+        return torch.equal(torch.cat(out), want)
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return bool((y == world * (world + 1) / 2).all())
+
+    def barrier():
+        dist.barrier()
+        return True
+
+    found = {}
+    for fn in (all_gather, all_gather_async, all_reduce, barrier):
+        try:
+            found[fn.__name__] = fn()
+        except RuntimeError as e:
+            raise AssertionError(f"gloo lacks {fn.__name__} for CUDA "
+                                 f"tensors: {e}") from e
+        if not found[fn.__name__]:
+            raise AssertionError(f"gloo {fn.__name__} on CUDA tensors gave a "
+                                 "wrong result")
+    return found
+
+
+def _sharded_runs(dev, mesh) -> dict:
+    """The frame at run_scaling's settings (its second call timed) and a
+    64×64 train step, on `mesh`."""
+    scene, cam = presets.cornell_box(dev, SCALING["width"], ball="glass")
+    cfg = RenderConfig(**SCALING)
+    key = prng.PRNGKey(0, dev)
+    sharded.render_photon_sharded(scene, cam, cfg, key, mesh)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    img, aux = sharded.render_photon_sharded(scene, cam, cfg, key, mesh,
+                                             return_aux=True)
+    torch.cuda.synchronize(dev)
+    frame_s = time.perf_counter() - t0
+    t = SHARDED_TRAIN_SIZE
+    tscene, tcam = presets.cornell_box(dev, t, ball="glass")
+    loss, new = sharded.train_step_sharded(
+        diff.extract_params(tscene), torch.zeros((t, t, 3), device=dev),
+        tscene, tcam, grad_config(RenderConfig(**dict(SCALING, width=t,
+                                                      height=t))),
+        key, mesh, lr=SHARDED_LR)
+    return dict(img=img.cpu(), aux=aux, frame_s=frame_s,
+                train=(float(loss), new.kd.cpu(), new.intensity.cpu()))
+
+
+def _gloo_rank_on_card(rank: int, store: str, device: str) -> dict:
+    """One of two processes on `device` (card 0) in a gloo group (NCCL
+    refuses two ranks on one device): the collectives checked, then
+    _sharded_runs."""
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=2, rank=rank)
+    try:
+        collectives = gloo_cuda_collectives(dev)
+        out = _sharded_runs(dev, sharded.make_mesh(dev.type))
+        loss, kd, intensity = out.pop("train")
+        return dict(out, collectives=collectives, loss=loss, kd=kd,
+                    intensity=intensity)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded_2proc(dev):
+    """Two processes on the one card over gloo against world 1 over NCCL in
+    this process, at run_scaling's settings and a 64×64 train step."""
+    with world_of_one("nccl"):
+        one = _sharded_runs(dev, sharded.make_mesh("cuda"))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = launch.spawn(_gloo_rank_on_card, 2,
+                             (os.path.join(tmp, "store"), str(dev)),
+                             threads=2)
+    spawn_s = time.perf_counter() - t0
+    for r, got in enumerate(ranks):
+        if not torch.allclose(got["img"], one["img"], rtol=SHARD_RTOL,
+                              atol=SHARD_ATOL):
+            diff_max = float((got["img"] - one["img"]).abs().max())
+            raise AssertionError(f"sharded_2proc: rank {r}'s frame off world "
+                                 f"1's by up to {diff_max}")
+        if got["aux"]["gather_overflow"] or got["aux"]["pair_overflow"]:
+            raise AssertionError(f"sharded_2proc: counters {got['aux']}")
+    train = _train_check("sharded_2proc", (ranks[0]["loss"], ranks[0]["kd"],
+                                           ranks[0]["intensity"]),
+                         one["train"])
+    emit("sharded_2proc", size=SCALING["width"], world=2, backend="gloo",
+         collectives=ranks[0]["collectives"],
+         frame_max_abs=max(float((g["img"] - one["img"]).abs().max())
+                           for g in ranks),
+         frame_s=[g["frame_s"] for g in ranks], world1_frame_s=one["frame_s"],
+         world1_backend="nccl", spawn_and_run_s=spawn_s,
+         valid_photons=ranks[0]["aux"]["valid_photons"],
+         train_size=SHARDED_TRAIN_SIZE, train=train,
+         image_mean=float(one["img"].mean()))
+
+
+def phase_scaling(dev):
+    """scaling_report at run_scaling's settings on world 1 over NCCL: the
+    rays/s of the one count this card can run; no efficiency."""
+    scene, cam = presets.cornell_box(dev, SCALING["width"], ball="glass")
+    with world_of_one("nccl"):
+        rep = multihost.scaling_report(scene, cam, RenderConfig(**SCALING),
+                                       prng.PRNGKey(0, dev))
+    if set(rep) != {1} or not rep[1] > 0:
+        raise AssertionError(f"scaling: report {rep}")
+    emit("scaling", size=SCALING["width"], photon_paths=SCALING[
+        "photon_paths"], counts=[1], rays_per_s={"1": rep[1]},
+         efficiency=None, card_count=torch.cuda.device_count())
 
 
 def phase_preview(dev, scene, cam):
@@ -3003,6 +3415,13 @@ def main() -> None:
     phase_grad_reference(dev)
     grad_launches, step_s = phase_grad(dev, scene, cam, cfg)
     phase_train(dev, scene, cam, cfg)
+    # multi-device rendering: world 1 over NCCL, two processes over gloo
+    phase_sharded_reference(dev)
+    sharded_launches = phase_sharded(dev, scene, cam, cfg, launches, 5)
+    sharded_train_launches = phase_sharded_train(dev, scene, cam, cfg,
+                                                 step_s)
+    phase_sharded_2proc(dev)
+    phase_scaling(dev)
     preview_launches, preview_s = phase_preview(dev, scene, cam)
     phase_progressive(dev, scene, cam)
     sp_scene, sp_cam, simple_s = phase_simple(dev)
@@ -3090,9 +3509,17 @@ def main() -> None:
             ("epoch_mt", "raytrace_tpu_torch/csrc/epoch_mt.cu",
              "raytrace_tpu/ops/epoch_intersect.py:184", "large",
              large_counts["k9"], k9)]
+    # the multi-device paths launch K1 and K2 (phase sharded) and K3 (phase
+    # sharded_train) as well, each counted from 0 over its own run
+    also = {"tri_closest": {"sharded": sharded_launches["k1"]},
+            "rowspan_gather": {"sharded": sharded_launches["k2"]},
+            "rowspan_gather_bwd": {
+                "sharded_train": sharded_train_launches["k3"]}}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "path": path, "launches": n, **row}
+         "path": path, "launches": n,
+         "launches_by_path": {path.split(" ")[0].rstrip(","): n,
+                              **also.get(name, {})}, **row}
         for name, src, rep, path, n, row in rows]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

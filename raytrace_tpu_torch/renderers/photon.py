@@ -153,11 +153,19 @@ def _photon_step(scene: Scene, config: RenderConfig, o, d, alpha, n_int,
 
 
 def trace_photons(scene: Scene, config: RenderConfig, key: Tensor,
-                  pass_idx: int, with_aux: bool = False):
+                  pass_idx: int, light_index: int | None = None,
+                  path_offset: int = 0, with_aux: bool = False):
     """One photon wave: `photon_paths` light paths, ≤ max_photon_depth
     diffuse deposits each (reference: photontracing.cu:80-185). With
     several lights, paths are striped over the light table by path id
-    (uniform pick, Le scaled by the light count).
+    (uniform pick, Le scaled by the light count); `light_index` instead
+    shoots every path from that light, Le unscaled.
+
+    Path ids are global: path i of the wave has id path_offset + i (wrapped
+    to 32 bits, as in JAX), and its Halton point, light and bounce uniforms
+    are functions of that id alone. So ranks that trace disjoint slices of
+    the id space (parallel/sharded.py) give, concatenated, the photons of
+    the whole wave.
 
     With config.differentiable, alpha carries the gradient of
     Le[light] ⊙ Π kd[m_j] over each deposit's recorded chain (record and
@@ -169,12 +177,12 @@ def trace_photons(scene: Scene, config: RenderConfig, key: Tensor,
     common.require_forward(config, "trace_photons")
     if not config.differentiable:
         pm, _, _, ovf = _photon_walk(scene, config, key, pass_idx,
-                                     record=False)
+                                     light_index, path_offset, record=False)
     else:
         with torch.no_grad():
             pm, chain, light, ovf = _photon_walk(
                 scene, dataclasses.replace(config, differentiable=False), key,
-                pass_idx, record=True)
+                pass_idx, light_index, path_offset, record=True)
         n_prod = common.chain_product(
             scene.materials.kd, chain, vec.take_rows(scene.lights.intensity,
                                                      light))
@@ -182,36 +190,45 @@ def trace_photons(scene: Scene, config: RenderConfig, key: Tensor,
     return (pm, dict(pair_overflow=ovf)) if with_aux else pm
 
 
+def _path_lights(scene: Scene, gids: Tensor, light_index: int | None):
+    """(light of each path, Le scale): the stripe gids % n_lights with
+    scale n_lights, or `light_index` (0 with one light) with scale 1."""
+    n_lights = scene.lights.count
+    if light_index is None and n_lights > 1:
+        return gids % n_lights, float(n_lights)
+    return torch.full_like(gids, light_index or 0), 1.0
+
+
 def emission(scene: Scene, config: RenderConfig, key: Tensor,
-             pass_idx: int) -> dict:
+             pass_idx: int, light_index: int | None = None,
+             path_offset: int = 0) -> dict:
     """The wave's emission (photontracing.cu:83-97): permuted-Halton light
-    samples → dict of gids, o, d, alpha, alive and the bounce key; the rays
-    of the walk's first launch."""
+    samples → dict of gids (global path ids), light (each path's light), o,
+    d, alpha, alive and the bounce key; the rays of the walk's first
+    launch."""
     dev = key.device
     n_paths = config.photon_paths
     keys = prng.split(prng.fold_in(key, pass_idx))
     k_perm, k_bounce = keys[0], keys[1]
     perms = sampling.halton_permutations(k_perm)
     stride = config.max_photon_depth if config.halton_stride_by_depth else 1
-    gids = torch.arange(n_paths, dtype=torch.int64, device=dev)
+    gids = (torch.arange(n_paths, dtype=torch.int64, device=dev)
+            + path_offset) & _U32
     smp = sampling.halton_sample_4d((gids * stride) & _U32, perms)
-    n_lights = scene.lights.count
-    if n_lights > 1:
-        i_light, light_scale = gids % n_lights, float(n_lights)
-    else:
-        i_light, light_scale = 0, 1.0
+    i_light, light_scale = _path_lights(scene, gids, light_index)
     le, o, d, ns_l, pdf = light_ops.sample_Le(
         scene.lights, i_light, smp[:, 0], smp[:, 1], smp[:, 2], smp[:, 3])
     le = le * light_scale
     alpha = (vec.absdot(ns_l, d)[:, None] * le
              / torch.where(pdf == 0.0, 1.0, pdf)[:, None])
     alive = (pdf > 0.0) & ~spectrum.is_black(le)
-    return dict(gids=gids, o=o, d=d, alpha=alpha, alive=alive,
+    return dict(gids=gids, light=i_light, o=o, d=d, alpha=alpha, alive=alive,
                 k_bounce=k_bounce)
 
 
 def _photon_walk(scene: Scene, config: RenderConfig, key: Tensor,
-                 pass_idx: int, record: bool):
+                 pass_idx: int, light_index: int | None, path_offset: int,
+                 record: bool):
     """The photon walk → (PhotonMap, chain, light, pair_overflow): with
     `record`, chain [slots, max_photon_bounces] holds at column s the
     material a slot's path appended at step s before the deposit (−1:
@@ -220,11 +237,10 @@ def _photon_walk(scene: Scene, config: RenderConfig, key: Tensor,
     dev = key.device
     n_paths = config.photon_paths
     max_depth = config.max_photon_depth
-    em = emission(scene, config, key, pass_idx)
+    em = emission(scene, config, key, pass_idx, light_index, path_offset)
     gids, o, d, alpha, alive = (em[k] for k in ("gids", "o", "d", "alpha",
                                                 "alive"))
     k_bounce = em["k_bounce"]
-    n_lights = scene.lights.count
 
     ph_p = torch.zeros((n_paths, max_depth, 3), dtype=torch.float32,
                        device=dev)
@@ -277,9 +293,7 @@ def _photon_walk(scene: Scene, config: RenderConfig, key: Tensor,
                    valid=ph_valid.reshape(n_slots))
     if not record:
         return pm, None, None, ovf
-    light = (torch.repeat_interleave(gids % n_lights, max_depth)
-             if n_lights > 1 else
-             torch.zeros((n_slots,), dtype=torch.int64, device=dev))
+    light = torch.repeat_interleave(em["light"], max_depth)
     return pm, ph_chain.reshape(n_slots, n_steps), light, ovf
 
 

@@ -118,6 +118,12 @@ class Scene:
     bvh: Optional["FlatBVH"] = None
     clusters: Optional["ClusterSet"] = None
 
+    def with_materials(self, materials: Materials) -> "Scene":
+        return dataclasses.replace(self, materials=materials)
+
+    def with_lights(self, lights: Lights) -> "Scene":
+        return dataclasses.replace(self, lights=lights)
+
 
 def empty_triangles(device) -> Triangles:
     """0-length triangle family: intersect() skips empty families."""

@@ -108,3 +108,22 @@ def test_stratified_2d(seed):
     jk, pk = _keys(seed)
     np.testing.assert_array_equal(n(j_sampling.stratified_2d(jk, 4, 3)),
                                   n(p_sampling.stratified_2d(pk, 4, 3)))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_stratified_1d_layout(seed):
+    """SampleLayout's 1D requests: the same offsets and, for the same key
+    and global sample ids, the same stratified uniforms bit for bit."""
+    jk, pk = _keys(seed)
+    jl, pl = j_samples.SampleLayout(), p_samples.SampleLayout()
+    for req in (3, 1, 4):
+        assert jl.add_1d(req) == pl.add_1d(req)
+    assert jl.add_2d(2) == pl.add_2d(2)  # 2D requests leave 1D offsets be
+    ids = np.random.default_rng(seed).integers(0, 2**31, 40).astype(np.uint32)
+    got = pl.materialize_1d(pk, t(ids.astype(np.int64)))
+    assert got.shape == (40, 8)
+    np.testing.assert_array_equal(
+        n(jl.materialize_1d(jk, jnp.asarray(ids))), n(got))
+    empty = p_samples.SampleLayout().materialize_1d(pk, t(ids.astype(
+        np.int64)))
+    assert empty.shape == (40, 0)

@@ -76,6 +76,19 @@ def test_sphere_plane_and_builder_lights_equal():
         JBuilder())))
 
 
+def test_scene_with_materials_and_lights():
+    """Scene.with_materials / with_lights swap one table and keep the rest,
+    in both packages alike."""
+    js, _ = j_presets.cornell_box(16, ball="mirror")
+    jl, _ = j_presets.sphere_plane(16)
+    ps, pl = port_scene(js), port_scene(jl)
+    j_new = js.with_materials(jl.materials).with_lights(jl.lights)
+    p_new = ps.with_materials(pl.materials).with_lights(pl.lights)
+    assert p_new.materials is pl.materials and p_new.lights is pl.lights
+    assert p_new.tris is ps.tris and ps.lights is not pl.lights
+    _assert_tree_equal(p_new, np_tree(j_new))
+
+
 @pytest.mark.parametrize("spp,jitter", [(1, True), (4, True), (2, False)])
 def test_pixel_samples(spp, jitter):
     jxy, jlens = j_camera.pixel_samples(jax.random.PRNGKey(3), 12, 10, spp,
