@@ -221,6 +221,16 @@ The large-scene path (BASELINE config[4], 4,194,304 triangles):
                 with its job spread, pair tests and bound), 2 frames with K6,
                 K7, K8, K9 and K2 launch counts, and one profiled frame
                 (device busy share, K6-K9 and K2 device ms)
+ 34. bench      the harness (raytrace_tpu_torch/bench.py, which holds the
+                settings above) on the same scene: its combined_multiwave
+                cell in process, config[4] over 4 waves with a checkpoint
+                after wave 2 and the resume probe (the re-run wave's state
+                equal to the kept one by torch.equal on all four fields),
+                radius² trace non-increasing, overflow 0, with the K2 and
+                K6-K9 launches of the cell; then `python -m
+                raytrace_tpu_torch.bench --cell headline --reps 3` as a
+                subprocess (bench_headline), its last line parsed; any
+                failed check of either is fatal
 Then the kernel table as one JSON line (each kernel's launches on its main
 path and, for K1, K2 and K3, on the sharded paths too, each counted from 0
 over its own run), the card line from nvidia-smi, and last {"ok": true,
@@ -253,7 +263,10 @@ import torch
 import torch.distributed as dist
 
 import raytrace_tpu_torch
-from raytrace_tpu_torch import cli, load_pbrt
+from raytrace_tpu_torch import bench, cli, load_pbrt
+from raytrace_tpu_torch.bench import (BENCH, LARGE, LARGE_SIMPLE,
+                                      LARGE_TRIS, MULTIWAVE, SCALING, SIZE,
+                                      nvidia_smi)
 from raytrace_tpu_torch.core import prng
 from raytrace_tpu_torch.core.config import RenderConfig
 from raytrace_tpu_torch.diff import edges, optim
@@ -281,16 +294,15 @@ from raytrace_tpu_torch.utils.timing import (call_device_ms, cuda_ms,
                                              device_records,
                                              kernel_device_ms)
 
-SIZE = 512
-# bench.py:78-85, the frame users render through render_photon
-BENCH = dict(width=SIZE, height=SIZE, spp=1, scene_epsilon=1e-3,
-             photon_paths=1 << 18, photon_passes=1, max_photon_bounces=8,
-             footprint_radius_scale=8.0)
+# the harness's cell table holds bench.py's settings: BENCH (the headline,
+# bench.py:78-85), MULTIWAVE (run_multiwave: 8 waves), SCALING (run_scaling,
+# bench.py:443-448: the sharded frame of phases sharded_2proc and
+# scaling), LARGE and LARGE_TRIS (run_combined, bench.py:237-262:
+# triangle_field(1 << 22, 512), 2^22 paths × 4 deposits = 16.8M slots) and
+# LARGE_SIMPLE (run_triangle_field, bench.py:377-390, on that scene)
 # the preview: 2,048 paths a wave, 8,192 slots, under the 2^14 threshold of
 # the dense gather K4
 PREVIEW = dict(BENCH, photon_paths=1 << 11, photon_passes=16)
-# bench.py run_multiwave: the headline frame over 8 waves
-MULTIWAVE = dict(BENCH, photon_passes=8)
 # bench.py run_scaling's map (bench.py:447): 2^16 paths, 262,144 slots
 K5_PATHS = 1 << 16
 # the front end: examples/cornell.pbrt at the headline's width, parsed and
@@ -313,10 +325,7 @@ EDGE_LARGE_K = 64
 # of 2^17 (tile, cluster) pairs: one round dropped ~97,000 pairs of each
 # ~228,000-pair launch at 512² (its overflow warning asks for more rounds)
 EDGE_LARGE_ROUNDS = 4
-# bench.py run_scaling's settings (bench.py:443-448): the sharded frame of
-# phases sharded_2proc and scaling; its train step at 64×64
-SCALING = dict(width=256, height=256, spp=1, scene_epsilon=1e-3,
-               photon_paths=1 << 16, photon_passes=1, max_photon_bounces=8)
+# the sharded train step at 64×64
 SHARDED_TRAIN_SIZE = 64
 # N ranks against one: the JAX package's own bounds (tests/test_sharded.py)
 SHARD_RTOL, SHARD_ATOL = 5e-4, 5e-5
@@ -327,12 +336,6 @@ SHARDED_LR = 0.05
 # BASELINE config[0] as examples/render_sphere_plane.py renders it
 SIMPLE = dict(width=256, height=256, spp=4, scene_epsilon=1e-3)
 N_RAYS = 1 << 18
-# BASELINE config[4] as bench.py run_combined renders it (bench.py:237-262):
-# triangle_field(1 << 22, 512), 2^22 paths × 4 deposits = 16.8M slots
-LARGE_TRIS = 1 << 22
-LARGE = dict(BENCH, photon_paths=1 << 22, initial_radius2=0.04)
-# bench.py run_triangle_field's settings (bench.py:377-390), on that scene
-LARGE_SIMPLE = dict(width=SIZE, height=SIZE, spp=1, scene_epsilon=1e-3)
 # the emission launch's kernels are held against their plain versions on
 # tiles spread over the launch (K8) and on its first jobs (K9): the whole
 # takes the plain versions tens of seconds
@@ -414,13 +417,6 @@ GRAD_REL = 1e-3
 
 def emit(phase: str, **kv) -> None:
     print(json.dumps({"phase": phase, **kv}), flush=True)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def bound(ops: float, nbytes: float) -> dict:
@@ -2061,7 +2057,7 @@ class _BuildLog(logging.Handler):
 def phase_build_large(dev):
     """triangle_field(1 << 22, 512) on the card: host seconds of the whole
     build and of its SAH build, cluster set and upload (the builder's
-    scene_build line)."""
+    scene_build line) → (scene, camera, build seconds)."""
     log = _BuildLog()
     logger = logging.getLogger("raytrace_tpu_torch")
     logger.addHandler(log)
@@ -2081,7 +2077,7 @@ def phase_build_large(dev):
          bvh_max_depth=scene.bvh.max_depth, total_s=total_s,
          bvh_s=float(f["bvh_s"]), clusters_s=float(f["clusters_s"]),
          upload_s=float(f["upload_s"]))
-    return scene, cam
+    return scene, cam, total_s
 
 
 def pbrt_mesh_text(verts, idx) -> str:
@@ -3333,6 +3329,46 @@ def phase_large(dev, scene, cam, profile_path=None, frames=2):
     return counts, frame_s
 
 
+def phase_bench(dev, scene, cam, build_s):
+    """The harness's combined_multiwave cell in process on phase large's
+    scene, with the K2 and K6-K9 launches of the whole cell (set-up, 4
+    waves, the resumed wave and the profiled one); then its headline cell
+    as `python -m raytrace_tpu_torch.bench` in a subprocess."""
+    run = bench.Run(dev)
+    run.scenes["large", SIZE] = (scene, cam, build_s)
+    _reset_kernel_counts()
+    rep = bench.run_cell(run, "combined_multiwave")
+    counts = _kernel_counts()
+    emit("bench", cell="combined_multiwave", triangles=LARGE_TRIS,
+         slots=LARGE["photon_paths"] * RenderConfig().max_photon_depth,
+         metrics=rep.metrics, checks=rep.checks, launches=counts)
+    failed = [k for k, ok in rep.checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"bench: combined_multiwave failed {failed}")
+    if min(counts.values()) <= 0:
+        raise AssertionError(f"bench: combined_multiwave launches {counts}")
+    del run, rep
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "raytrace_tpu_torch.bench", "--cell",
+         "headline", "--reps", "3"], cwd=Path(__file__).resolve().parent,
+        capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"bench: the headline cell exited "
+                             f"{out.returncode}:\n{out.stderr[-4000:]}")
+    last = json.loads(out.stdout.splitlines()[-1])
+    m = last["cells"]["headline"]["metrics"]
+    if not last["ok"] or m["frame_time_s"]["n"] != 3:
+        raise AssertionError(f"bench: the headline cell's last line {last}")
+    emit("bench_headline", wall_s=wall_s, device=last["device"],
+         checks=last["checks"], **{k: m[k] for k in (
+             "camera_rays_per_sec_full_ppm_pipeline", "frame_time_s",
+             "first_call_s", "kernel_build_s", "device_busy_s",
+             "device_idle_frac", "peak_memory_gb", "launches")})
+
+
 def profiled(fn):
     """fn() once under torch.profiler → (device busy seconds, device ms by
     kernel name, the key_averages table, the count of device
@@ -3458,7 +3494,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # the large-scene path: BASELINE config[4]
-    lscene, lcam = phase_build_large(dev)
+    lscene, lcam, lbuild_s = phase_build_large(dev)
     lcfg = RenderConfig(**LARGE)
     k8, k9, camera = phase_k8_k9(large_launches(dev, lscene, lcam, lcfg),
                                  lscene)
@@ -3474,6 +3510,7 @@ def main() -> None:
             large_simple_s, args.profile + ".large_simple")
     large_counts, _ = phase_large(
         dev, lscene, lcam, args.profile and args.profile + ".large")
+    phase_bench(dev, lscene, lcam, lbuild_s)
 
     # launches: K1 and K2 over the forward frames of phase main, K3 over
     # the gradient steps of phase grad, K4 over the 16-wave preview render,

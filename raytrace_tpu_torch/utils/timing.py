@@ -29,6 +29,27 @@ def device_records(prof) -> list[tuple[str, float]]:
             for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+def device_intervals(prof) -> list[tuple[str, float, float]]:
+    """(kernel name without its argument list, start µs, end µs) of each
+    device operation a finished torch.profiler.profile recorded, on the
+    card's clock."""
+    from torch.autograd import DeviceType
+
+    return [(e.name.split("(")[0], e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def union_us(spans) -> float:
+    """The length of the union of (start, end) intervals: time the card
+    was busy, counting overlapping operations (other streams) once."""
+    total, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
 def kernel_device_ms(fn, kernel: str, iters: int) -> float:
     """Mean device time of the kernel named `kernel` over iters calls of fn
     (one launch each), from the profiler's kernel records: the card's time

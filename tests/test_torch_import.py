@@ -1,5 +1,7 @@
 """The port and its smoke script import with jax and flax absent: the machine
-with the card has neither, and neither may reach for them."""
+with the card has neither, and neither may reach for them. Nor do they load
+the JAX package (raytrace_tpu) or the root bench.py, which imports nothing
+but the standard library at module level."""
 import os
 import subprocess
 import sys
@@ -19,6 +21,8 @@ for name in names:
     importlib.import_module(name)
 assert not any(k == "jax" or k.startswith(("jax.", "flax"))
                for k, v in sys.modules.items() if v is not None)
+assert not any(k in ("raytrace_tpu", "bench")
+               or k.startswith("raytrace_tpu.") for k in sys.modules)
 print(len(names))
 """
 
