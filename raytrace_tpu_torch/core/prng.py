@@ -17,6 +17,8 @@ import math
 import torch
 from torch import Tensor
 
+from raytrace_tpu_torch.utils import metrics
+
 _MASK = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -45,15 +47,21 @@ def PRNGKey(seed: int, device) -> Tensor:
     """`jax.random.PRNGKey(seed)` as the JAX package runs it, with 64-bit
     types off: the seed is a 32-bit integer, so the key is (0, the seed's
     low 32 bits), for large and negative seeds too."""
-    return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64,
-                        device=device)
+    with metrics.sync("prng_key"):
+        return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64,
+                            device=device)
 
 
 def fold_in(key: Tensor, data) -> Tensor:
     """`jax.random.fold_in`, vectorized: `data` may be an int or an integer
     tensor; key `[..., 2]` and data broadcast (this replaces a vmap of
     fold_in over uint32 ids)."""
-    d = torch.as_tensor(data, dtype=torch.int64, device=key.device) & _MASK
+    if isinstance(data, Tensor):
+        d = torch.as_tensor(data, dtype=torch.int64, device=key.device)
+    else:  # an int reaches the card by a blocking copy
+        with metrics.sync("fold_in_int"):
+            d = torch.as_tensor(data, dtype=torch.int64, device=key.device)
+    d = d & _MASK
     y1, y2 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(d), d)
     return torch.stack([y1, y2], dim=-1)
 

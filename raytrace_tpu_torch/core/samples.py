@@ -11,6 +11,7 @@ import torch
 from torch import Tensor
 
 from raytrace_tpu_torch.core import prng
+from raytrace_tpu_torch.utils import metrics
 
 
 def strata_2d(n: int) -> tuple[int, int]:
@@ -51,10 +52,12 @@ class SampleLayout:
                 keys = prng.split(key)
                 key, sub = keys[0], keys[1]
                 u = prng.uniform(prng.fold_in(sub, sample_ids), (2,))
-                k = torch.tensor([s % sx, s // sx], dtype=torch.float32,
-                                 device=key.device)
-                dim = torch.tensor([sx, sy], dtype=torch.float32,
-                                   device=key.device)
+                with metrics.sync("stratum"):
+                    k = torch.tensor([s % sx, s // sx], dtype=torch.float32,
+                                     device=key.device)
+                with metrics.sync("strata"):
+                    dim = torch.tensor([sx, sy], dtype=torch.float32,
+                                       device=key.device)
                 cols.append((u + k) / dim)
         if not cols:
             return torch.zeros((n, 0, 2), dtype=torch.float32,

@@ -4,6 +4,8 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from raytrace_tpu_torch.utils import metrics
+
 # pbrt RGBSpectrum::y() luminance weights
 _Y_WEIGHT = (0.212671, 0.715160, 0.072169)
 
@@ -15,7 +17,8 @@ def is_black(s: Tensor) -> Tensor:
 
 def luminance(s: Tensor) -> Tensor:
     """pbrt RGBSpectrum::y()."""
-    w = torch.tensor(_Y_WEIGHT, dtype=s.dtype, device=s.device)
+    with metrics.sync("luminance_weights"):
+        w = torch.tensor(_Y_WEIGHT, dtype=s.dtype, device=s.device)
     return torch.sum(s * w, dim=-1)
 
 

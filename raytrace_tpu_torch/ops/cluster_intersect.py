@@ -42,6 +42,7 @@ from torch import Tensor
 
 from raytrace_tpu_torch.ops import cluster_kernels as ck
 from raytrace_tpu_torch.ops.photon_grid import morton3
+from raytrace_tpu_torch.utils import metrics
 
 BIG = 1e30
 CLUSTER_SIZE = 256
@@ -129,7 +130,7 @@ def intersect_clusters(clusters: ClusterSet, o, d, tmin, tmax,
     triangle index. Exact while overflow is 0; pairs past the capacity
     pair_budget·rounds are dropped and counted. No gradient: callers
     re-intersect the winner."""
-    with torch.no_grad():
+    with torch.no_grad(), metrics.span("rt.intersect.cluster"):
         return _intersect_clusters(clusters, o.detach(), d.detach(),
                                    tmin.detach(), tmax.detach(), pair_budget,
                                    sort_rays, rounds, tile_rays)
@@ -162,7 +163,8 @@ def _intersect_clusters(clusters, o, d, tmin, tmax, pair_budget, sort_rays,
     mask = ck.cull_tiles(o_p, d_p, tmin_p, tmax_p, cmin, cmax, tile_rays,
                          n_real)
     mask[:, 0] = 1  # the seed pair (tile, cluster 0)
-    flat_pairs = torch.nonzero(mask.reshape(-1))[:, 0]  # tile·cp + cluster
+    with metrics.sync("cluster_pairs"):  # tile·cp + cluster
+        flat_pairs = torch.nonzero(mask.reshape(-1))[:, 0]
     n_pairs = flat_pairs.shape[0]
     capacity = pair_budget * rounds
     kept = flat_pairs[:capacity]
@@ -179,5 +181,9 @@ def _intersect_clusters(clusters, o, d, tmin, tmax, pair_budget, sort_rays,
         t = torch.empty_like(t).index_put_((order,), t)
         idx = torch.empty_like(idx).index_put_((order,), idx)
     idx = torch.clamp(idx, 0, max(clusters.n_tris - 1, 0))
-    count = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)
-    return t, idx, count(n_pairs), count(max(n_pairs - capacity, 0))
+    with metrics.sync("cluster_pair_count"):
+        pairs = torch.tensor(n_pairs, dtype=torch.int64, device=dev)
+    with metrics.sync("cluster_overflow"):
+        overflow = torch.tensor(max(n_pairs - capacity, 0),
+                                dtype=torch.int64, device=dev)
+    return t, idx, pairs, overflow

@@ -25,6 +25,7 @@ from torch import Tensor
 
 from raytrace_tpu_torch.ops import cuda_lib
 from raytrace_tpu_torch.ops.photon_grid import PhotonMap
+from raytrace_tpu_torch.utils import metrics
 
 _PAIRS_PER_STEP = 1 << 22  # plain version: queries × photons per batch
 # queries that share one pre-cull box: a warp of the kernel, 32
@@ -160,7 +161,8 @@ def gather_radius_dense_tiles(photons_p, photons_alpha, photons_wi,
     contract of JAX `gather_radius_pallas`. radius2 = 0 disables a query.
     Forward only: every input is read detached."""
     c = lambda x: x.detach().contiguous()
-    out = dense_S(c(q_p), c(radius2), c(q_ns), c(photons_p),
-                  c(photons_alpha), c(photons_wi), c(photons_valid),
-                  c(n_valid))
+    with metrics.span("rt.gather.kernel"):
+        out = dense_S(c(q_p), c(radius2), c(q_ns), c(photons_p),
+                      c(photons_alpha), c(photons_wi), c(photons_valid),
+                      c(n_valid))
     return q_kd_over_pi * out[:3].T, out[3].to(torch.int32)

@@ -40,6 +40,7 @@ import torch
 from raytrace_tpu_torch.ops import epoch_kernels as ek
 from raytrace_tpu_torch.ops.cluster_intersect import ClusterSet, floor_cell
 from raytrace_tpu_torch.ops.photon_grid import morton3
+from raytrace_tpu_torch.utils import metrics
 
 BIG = 1e30
 TILE = ek.TILE
@@ -84,7 +85,8 @@ def compact_pairs(maskT, pb: int):
     ascending flat order → (flat indices [≤ pb] int64, their mask bytes,
     the number of set entries)."""
     flat = maskT.reshape(-1)
-    nz = torch.nonzero(flat)[:, 0]
+    with metrics.sync("epoch_pairs"):
+        nz = torch.nonzero(flat)[:, 0]
     pairs = nz[:pb]
     return pairs, flat[pairs], nz.shape[0]
 
@@ -93,9 +95,11 @@ def _aligned_jobs(clus, subtile, cp: int, n_subtiles: int):
     """JAX's job alignment (epoch_intersect.py:592-626): the cluster-major
     job list with each cluster's run padded to a multiple of JPS by
     (cluster, last subtile) jobs → (cluster, subtile) int64 per position."""
-    lens = torch.bincount(clus, minlength=cp)
+    with metrics.sync("epoch_job_lens"):
+        lens = torch.bincount(clus, minlength=cp)
     al = (lens + JPS - 1) // JPS * JPS
-    total = int(al.sum())
+    with metrics.sync("epoch_jobs"):
+        total = int(al.sum())
     starts = torch.cumsum(lens, 0) - lens
     new_starts = torch.cumsum(al, 0) - al
     pos = new_starts[clus] + (torch.arange(clus.shape[0], device=clus.device)
@@ -169,8 +173,9 @@ def _intersect_epochs(clusters, o, d, tmin, tmax, n_epochs, budget_scale,
     mean_ext = torch.sum(torch.amax(extm, dim=1)) / torch.clamp(
         torch.sum(real.to(torch.float32)), min=1.0)
     l0 = 2.0 * torch.clamp(mean_ext, min=1e-6)
-    uppers = torch.tensor([4.0 ** e for e in range(n_epochs - 1)] + [math.inf],
-                          dtype=torch.float32, device=dev)
+    with metrics.sync("epoch_bounds"):
+        uppers = torch.tensor([4.0 ** e for e in range(n_epochs - 1)]
+                              + [math.inf], dtype=torch.float32, device=dev)
     bounds = torch.cat([torch.zeros((1,), dtype=torch.float32, device=dev),
                         uppers * l0])
     smin = torch.amin(torch.where(real[:, None], cmin, BIG), dim=0)
@@ -191,40 +196,51 @@ def _intersect_epochs(clusters, o, d, tmin, tmax, n_epochs, budget_scale,
     i_best = torch.zeros((np_,), dtype=torch.int32, device=dev)
     sp_total = ovf_total = 0
     for e in range(n_epochs):
-        w0 = (torch.full_like(t_enter, -BIG) if e == 0
-              else t_enter + bounds[e])
-        w1 = (torch.full_like(t_enter, BIG) if e == n_epochs - 1
-              else t_enter + bounds[e + 1])
-        tb = torch.minimum(t_best, tmax_p).contiguous()
-        maskT = ek.cull_bits(o_p, inv_d, tmin_p, tb, w0.contiguous(),
-                             w1.contiguous(), cmin, cmax, n_live, real_box,
-                             n_real)
+        with metrics.span("rt.intersect.epoch"):
+            w0 = (torch.full_like(t_enter, -BIG) if e == 0
+                  else t_enter + bounds[e])
+            w1 = (torch.full_like(t_enter, BIG) if e == n_epochs - 1
+                  else t_enter + bounds[e + 1])
+            tb = torch.minimum(t_best, tmax_p).contiguous()
+            maskT = ek.cull_bits(o_p, inv_d, tmin_p, tb, w0.contiguous(),
+                                 w1.contiguous(), cmin, cmax, n_live, real_box,
+                                 n_real)
 
-        pairs, pbits, n_pairs = compact_pairs(maskT, pb)
-        sub = ((pbits[:, None].to(torch.int32)
-                >> torch.arange(NSUB, device=dev)[None, :]) & 1) > 0
-        nzs = torch.nonzero(sub)  # row-major: ascending (cluster, subtile)
-        n_sp_all = nzs.shape[0]
-        nzs = nzs[:spb]
-        pair = pairs[nzs[:, 0]]
-        a_clus, a_sub = _aligned_jobs(
-            pair // n_tiles, (pair % n_tiles) * NSUB + nzs[:, 1], cp,
-            n_subtiles)
-        rnd = torch.arange(a_clus.shape[0], device=dev) // round_size
-        keep = a_clus < n_real
-        a_clus, a_sub, rnd = a_clus[keep], a_sub[keep], rnd[keep]
-        if a_clus.shape[0]:
-            t_rows, i_rows = ek.mt_jobs(
-                a_clus.to(torch.int32), a_sub.to(torch.int32), o_p, d_p,
-                tmin_p, tb, tv)
-            t_e, i_e = _combine(t_rows, i_rows, a_sub, rnd, np_)
-            better = t_e < t_best
-            t_best = torch.where(better, t_e, t_best)
-            i_best = torch.where(better, i_e, i_best)
-        sp_total += n_sp_all
-        ovf_total += max(n_pairs - pb, 0) + max(n_sp_all - spb, 0)
+            pairs, pbits, n_pairs = compact_pairs(maskT, pb)
+            sub = ((pbits[:, None].to(torch.int32)
+                    >> torch.arange(NSUB, device=dev)[None, :]) & 1) > 0
+            # row-major: ascending (cluster, subtile)
+            with metrics.sync("epoch_subpairs"):
+                nzs = torch.nonzero(sub)
+            n_sp_all = nzs.shape[0]
+            nzs = nzs[:spb]
+            pair = pairs[nzs[:, 0]]
+            a_clus, a_sub = _aligned_jobs(
+                pair // n_tiles, (pair % n_tiles) * NSUB + nzs[:, 1], cp,
+                n_subtiles)
+            rnd = torch.arange(a_clus.shape[0], device=dev) // round_size
+            keep = a_clus < n_real
+            with metrics.sync("epoch_keep_clus"):
+                a_clus = a_clus[keep]
+            with metrics.sync("epoch_keep_sub"):
+                a_sub = a_sub[keep]
+            with metrics.sync("epoch_keep_round"):
+                rnd = rnd[keep]
+            if a_clus.shape[0]:
+                t_rows, i_rows = ek.mt_jobs(
+                    a_clus.to(torch.int32), a_sub.to(torch.int32), o_p, d_p,
+                    tmin_p, tb, tv)
+                t_e, i_e = _combine(t_rows, i_rows, a_sub, rnd, np_)
+                better = t_e < t_best
+                t_best = torch.where(better, t_e, t_best)
+                i_best = torch.where(better, i_e, i_best)
+            sp_total += n_sp_all
+            ovf_total += max(n_pairs - pb, 0) + max(n_sp_all - spb, 0)
 
     t = t_best[:n][unsort]
     idx = torch.clamp(i_best[:n][unsort], 0, max(clusters.n_tris - 1, 0))
-    count = lambda v: torch.tensor(v, dtype=torch.int64, device=dev)
-    return t, idx, count(sp_total), count(ovf_total)
+    with metrics.sync("epoch_subpair_count"):
+        n_subpairs = torch.tensor(sp_total, dtype=torch.int64, device=dev)
+    with metrics.sync("epoch_overflow"):
+        overflow = torch.tensor(ovf_total, dtype=torch.int64, device=dev)
+    return t, idx, n_subpairs, overflow

@@ -38,6 +38,7 @@ from raytrace_tpu_torch.ops import cluster_intersect
 from raytrace_tpu_torch.ops import epoch_intersect
 from raytrace_tpu_torch.ops import tri_intersect
 from raytrace_tpu_torch.scene.scene import Scene
+from raytrace_tpu_torch.utils import metrics
 
 BIG = 1e30
 
@@ -319,32 +320,34 @@ def _cluster_hits(scene: Scene, o, d, tmin, tmax, coherent: bool,
 def _closest_triangles(scene: Scene, o, d, tmin, tmax, coherent: bool,
                        budget_scale: float, rounds: int = 1):
     """→ (t, idx, beta, gamma, pair_overflow) through the scene's route."""
-    if scene.clusters is not None:
-        t, idx, overflow = _cluster_hits(scene, o, d, tmin, tmax, coherent,
-                                         budget_scale, rounds)
-        found = t < torch.clamp(tmax, max=BIG)
-        t_diff, beta, gamma = bvh_ops.reintersect_winner(scene.tris, idx, o,
-                                                         d, found)
-        return t_diff, idx, beta, gamma, overflow
-    if scene.bvh is not None:
-        return bvh_ops.intersect_triangles_bvh(
-            scene.bvh, scene.tris, o, d, tmin, tmax) + (0,)
-    return tri_intersect.intersect_triangles(scene.tris, o, d, tmin,
-                                             tmax) + (0,)
+    with metrics.span("rt.intersect.cast"):
+        if scene.clusters is not None:
+            t, idx, overflow = _cluster_hits(scene, o, d, tmin, tmax,
+                                             coherent, budget_scale, rounds)
+            found = t < torch.clamp(tmax, max=BIG)
+            t_diff, beta, gamma = bvh_ops.reintersect_winner(
+                scene.tris, idx, o, d, found)
+            return t_diff, idx, beta, gamma, overflow
+        if scene.bvh is not None:
+            return bvh_ops.intersect_triangles_bvh(
+                scene.bvh, scene.tris, o, d, tmin, tmax) + (0,)
+        return tri_intersect.intersect_triangles(scene.tris, o, d, tmin,
+                                                 tmax) + (0,)
 
 
 def _occluded_triangles(scene: Scene, o, d, tmin, tmax, coherent: bool,
                         budget_scale: float, rounds: int = 1):
     """Any triangle hit within (tmin, tmax) → (occluded [N], overflow)."""
-    if scene.clusters is not None:
-        t, _, overflow = _cluster_hits(scene, o, d, tmin, tmax, coherent,
-                                       budget_scale, rounds)
-        return t < torch.clamp(tmax, max=BIG), overflow
-    if scene.bvh is not None:
-        return bvh_ops.occluded_triangles_bvh(scene.bvh, scene.tris, o, d,
-                                              tmin, tmax), 0
-    return tri_intersect.occluded_triangles(scene.tris, o, d, tmin,
-                                            tmax), 0
+    with metrics.span("rt.intersect.cast"):
+        if scene.clusters is not None:
+            t, _, overflow = _cluster_hits(scene, o, d, tmin, tmax, coherent,
+                                           budget_scale, rounds)
+            return t < torch.clamp(tmax, max=BIG), overflow
+        if scene.bvh is not None:
+            return bvh_ops.occluded_triangles_bvh(scene.bvh, scene.tris, o,
+                                                  d, tmin, tmax), 0
+        return tri_intersect.occluded_triangles(scene.tris, o, d, tmin,
+                                                tmax), 0
 
 
 # ---------------------------------------------------------------------------
@@ -436,7 +439,8 @@ def occluded(scene: Scene, o, d, tmin, tmax, coherent: bool = False,
 def warn_pair_overflow(overflow, what: str) -> None:
     """One RuntimeWarning when an accumulated pair_overflow is nonzero (a
     single device read: call it once per frame, not per launch)."""
-    count = int(overflow)
+    with metrics.sync("pair_overflow"):
+        count = int(overflow)
     if count > 0:
         warnings.warn(f"{what}: pair budget overflow by {count} pairs — "
                       "intersections were dropped; raise "

@@ -36,6 +36,7 @@ from torch import Tensor
 from raytrace_tpu_torch.ops import cuda_lib
 from raytrace_tpu_torch.ops.photon_grid import morton3
 from raytrace_tpu_torch.ops.work_items import work_items
+from raytrace_tpu_torch.utils import metrics
 
 TILE_Q = 128
 ROWSPAN_CHUNK = 512
@@ -425,7 +426,8 @@ def rowspan_jobs(photons_p, photons_wi, photons_alpha, photons_valid,
     # tiles before the last included job's tile were scanned completely; on
     # overflow that tile may be partial and later tiles were never visited
     tile_ids = torch.arange(n_tiles, device=dev)
-    last_tile = pid[torch.clamp(n_valid, min=1) - 1] // n_chunks
+    with metrics.sync("gather_last_tile"):  # a 0-dim index is read
+        last_tile = pid[torch.clamp(n_valid, min=1) - 1] // n_chunks
     tile_ok = torch.where(overflow > 0, tile_ids < last_tile,
                           tile_ids <= last_tile)
     i32 = lambda x: x.to(torch.int32).contiguous()
@@ -453,12 +455,15 @@ def gather_radius_rowspan(photons_p, photons_alpha, photons_wi,
     Differentiable in photons_alpha (through RowspanS, kernel K3) and in
     q_kd_over_pi (plain autograd: kd/π multiplies outside the kernel)."""
     n = q_p.shape[0]
-    jobs = rowspan_jobs(photons_p, photons_wi, photons_alpha, photons_valid,
-                        cell_size, q_p, radius2, q_ns, chunk=chunk,
-                        job_budget=job_budget, r_max=r_max, rounds=rounds)
-    out = RowspanS.apply(jobs["pdata"], jobs["pid"], jobs["tile_begin"],
-                         jobs["tile_end"], jobs["n_chunks"], jobs["qpT"],
-                         jobs["qr2"], jobs["qnsT"], jobs["n_valid"])
+    with metrics.span("rt.gather.jobs"):
+        jobs = rowspan_jobs(photons_p, photons_wi, photons_alpha,
+                            photons_valid, cell_size, q_p, radius2, q_ns,
+                            chunk=chunk, job_budget=job_budget, r_max=r_max,
+                            rounds=rounds)
+    with metrics.span("rt.gather.kernel"):
+        out = RowspanS.apply(jobs["pdata"], jobs["pid"], jobs["tile_begin"],
+                             jobs["tile_end"], jobs["n_chunks"], jobs["qpT"],
+                             jobs["qr2"], jobs["qnsT"], jobs["n_valid"])
     q_ok = torch.repeat_interleave(jobs["tile_ok"], TILE_Q)
     out = torch.where(q_ok[None, :], out, 0.0)
     unsort = torch.empty_like(jobs["qorder"])

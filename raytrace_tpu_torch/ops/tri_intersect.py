@@ -18,6 +18,7 @@ import ctypes
 import torch
 
 from raytrace_tpu_torch.ops import cuda_lib
+from raytrace_tpu_torch.utils import metrics
 
 BIG = 1e30
 _PAIRS_PER_STEP = 1 << 22  # plain version: rays × triangles per block
@@ -113,22 +114,23 @@ def reintersect_winner(tris, idx, o, d, found):
     """Re-intersect the winning triangle with plain tensor ops → (t, beta,
     gamma) (ops/bvh.py reintersect_winner): the kernel finds `idx`, this
     recomputes the hit from it."""
-    i = idx.long()
-    v0, v1, v2 = tris.v0[i], tris.v1[i], tris.v2[i]
-    e1 = v1 - v0
-    e2 = v2 - v0
-    pvec = torch.linalg.cross(d, e2)
-    det = torch.sum(e1 * pvec, dim=-1)
-    inv_det = torch.where(det != 0.0,
-                          1.0 / torch.where(det == 0.0, 1.0, det), 0.0)
-    tvec = o - v0
-    beta = torch.sum(tvec * pvec, dim=-1) * inv_det
-    qvec = torch.linalg.cross(tvec, e1)
-    gamma = torch.sum(d * qvec, dim=-1) * inv_det
-    t = torch.sum(e2 * qvec, dim=-1) * inv_det
-    zero = torch.zeros_like(t)
-    return (torch.where(found, t, BIG), torch.where(found, beta, zero),
-            torch.where(found, gamma, zero))
+    with metrics.span("rt.intersect.reintersect"):
+        i = idx.long()
+        v0, v1, v2 = tris.v0[i], tris.v1[i], tris.v2[i]
+        e1 = v1 - v0
+        e2 = v2 - v0
+        pvec = torch.linalg.cross(d, e2)
+        det = torch.sum(e1 * pvec, dim=-1)
+        inv_det = torch.where(det != 0.0,
+                              1.0 / torch.where(det == 0.0, 1.0, det), 0.0)
+        tvec = o - v0
+        beta = torch.sum(tvec * pvec, dim=-1) * inv_det
+        qvec = torch.linalg.cross(tvec, e1)
+        gamma = torch.sum(d * qvec, dim=-1) * inv_det
+        t = torch.sum(e2 * qvec, dim=-1) * inv_det
+        zero = torch.zeros_like(t)
+        return (torch.where(found, t, BIG), torch.where(found, beta, zero),
+                torch.where(found, gamma, zero))
 
 
 def _closest(tris, o, d, tmin, tmax):

@@ -35,6 +35,7 @@ from raytrace_tpu_torch.ops import intersect as isect_ops
 from raytrace_tpu_torch.scene.scene import Scene
 from raytrace_tpu_torch.shading import light as light_ops
 from raytrace_tpu_torch.shading import material as mat_ops
+from raytrace_tpu_torch.utils import metrics
 
 BIG = isect_ops.BIG
 
@@ -123,17 +124,19 @@ def camera_pass(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
     its mirror (kd) factors by record and replay. With return_aux, also
     {'pair_overflow': ...} summed over the chain's launches."""
     require_forward(config, "camera_pass")
-    if not config.differentiable:
-        rec, _, ovf = _camera_walk(scene, o, d, config, rays, record=False)
-    else:
-        with torch.no_grad():
-            rec, chain, ovf = _camera_walk(
-                scene, o, d, dataclasses.replace(config,
-                                                 differentiable=False),
-                rays, record=True)
-        n_prod = chain_product(scene.materials.kd, chain,
-                               torch.ones_like(rec.atten))
-        rec = dataclasses.replace(rec, atten=replay(rec.atten, n_prod))
+    with metrics.span("rt.frame.camera"):
+        if not config.differentiable:
+            rec, _, ovf = _camera_walk(scene, o, d, config, rays,
+                                       record=False)
+        else:
+            with torch.no_grad():
+                rec, chain, ovf = _camera_walk(
+                    scene, o, d, dataclasses.replace(config,
+                                                     differentiable=False),
+                    rays, record=True)
+            n_prod = chain_product(scene.materials.kd, chain,
+                                   torch.ones_like(rec.atten))
+            rec = dataclasses.replace(rec, atten=replay(rec.atten, n_prod))
     return (rec, dict(pair_overflow=ovf)) if return_aux else rec
 
 
@@ -168,10 +171,16 @@ def _camera_walk(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
     ovf = 0
 
     for depth in range(config.max_specular_depth + 1):
-        if depth > 0 and not bool(active.any()):
-            break
-        lanes = (active.nonzero()[:, 0] if compact and depth > 0
-                 else all_lanes)
+        if depth > 0:
+            with metrics.sync("camera_alive"):
+                any_active = bool(active.any())
+            if not any_active:
+                break
+        if compact and depth > 0:
+            with metrics.sync("camera_lanes"):
+                lanes = active.nonzero()[:, 0]
+        else:
+            lanes = all_lanes
         act = active[lanes]
         ol, dl = o[lanes], d[lanes]
         hit = isect_ops.intersect(
@@ -224,8 +233,9 @@ def _camera_walk(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
 
 def static_light_samples(scene: Scene, config: RenderConfig):
     """Per-light sample counts, read on the host."""
-    return tuple(int(min(x, config.max_light_samples))
-                 for x in scene.lights.n_samples.tolist())
+    with metrics.sync("light_samples"):
+        counts = scene.lights.n_samples.tolist()
+    return tuple(int(min(x, config.max_light_samples)) for x in counts)
 
 
 def direct_lighting(scene: Scene, rec: CameraRecords, key: Tensor,
@@ -239,38 +249,39 @@ def direct_lighting(scene: Scene, rec: CameraRecords, key: Tensor,
     unnormalized uwi. Light-sample uniforms are threefry(key, request,
     global sample id), as in the JAX package. With return_aux, also
     {'pair_overflow': ...} summed over the shadow launches."""
-    n = rec.p.shape[0]
-    dev = rec.p.device
-    hit = rec.hit
-    wo = vec.normalize(-rec.direction)
-    L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    if include_emitted:
-        L = L + light_ops.light_L(scene.lights, rec.light, -rec.direction)
-    if sample_ids is None:
-        sample_ids = torch.arange(n, dtype=torch.int64, device=dev)
-    layout = SampleLayout()
-    offsets = [layout.add_2d(ns_i) for ns_i in light_samples]
-    u2d = layout.materialize_2d(key, sample_ids)
-    eps = config.shadow_epsilon
-    tmin = torch.full((n,), eps, dtype=torch.float32, device=dev)
-    tmax = torch.full((n,), 1.0 - eps, dtype=torch.float32, device=dev)
-    ovf = 0
-    for i, ns_i in enumerate(light_samples):
-        for s in range(ns_i):
-            li, uwi, pdf = light_ops.sample_L_illum(
-                scene.lights, i, rec.p, u2d[:, offsets[i] + s])
-            shadowed, ovf_s = isect_ops.occluded_aux(
-                scene, rec.p, uwi, tmin, tmax, coherent=True,
-                budget_scale=config.intersect_budget_scale,
-                rounds=config.intersect_rounds)
-            ovf = ovf + ovf_s
-            wi = vec.normalize(uwi)
-            fr = mat_ops.f(scene.materials, rec.mat, wo, wi, uv=rec.uv)
-            cos = vec.absdot(rec.ns, wi)
-            good = (hit & ~shadowed & (pdf > 0.0)
-                    & (vec.length_squared(li) > 0.0))
-            contrib = cos[:, None] * fr * li * (
-                (1.0 / ns_i) / torch.where(pdf == 0.0, 1.0, pdf))[:, None]
-            L = L + torch.where(good[:, None], contrib, 0.0)
-    L = torch.where(hit[:, None], L, 0.0)
+    with metrics.span("rt.frame.direct"):
+        n = rec.p.shape[0]
+        dev = rec.p.device
+        hit = rec.hit
+        wo = vec.normalize(-rec.direction)
+        L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        if include_emitted:
+            L = L + light_ops.light_L(scene.lights, rec.light, -rec.direction)
+        if sample_ids is None:
+            sample_ids = torch.arange(n, dtype=torch.int64, device=dev)
+        layout = SampleLayout()
+        offsets = [layout.add_2d(ns_i) for ns_i in light_samples]
+        u2d = layout.materialize_2d(key, sample_ids)
+        eps = config.shadow_epsilon
+        tmin = torch.full((n,), eps, dtype=torch.float32, device=dev)
+        tmax = torch.full((n,), 1.0 - eps, dtype=torch.float32, device=dev)
+        ovf = 0
+        for i, ns_i in enumerate(light_samples):
+            for s in range(ns_i):
+                li, uwi, pdf = light_ops.sample_L_illum(
+                    scene.lights, i, rec.p, u2d[:, offsets[i] + s])
+                shadowed, ovf_s = isect_ops.occluded_aux(
+                    scene, rec.p, uwi, tmin, tmax, coherent=True,
+                    budget_scale=config.intersect_budget_scale,
+                    rounds=config.intersect_rounds)
+                ovf = ovf + ovf_s
+                wi = vec.normalize(uwi)
+                fr = mat_ops.f(scene.materials, rec.mat, wo, wi, uv=rec.uv)
+                cos = vec.absdot(rec.ns, wi)
+                good = (hit & ~shadowed & (pdf > 0.0)
+                        & (vec.length_squared(li) > 0.0))
+                contrib = cos[:, None] * fr * li * (
+                    (1.0 / ns_i) / torch.where(pdf == 0.0, 1.0, pdf))[:, None]
+                L = L + torch.where(good[:, None], contrib, 0.0)
+        L = torch.where(hit[:, None], L, 0.0)
     return (L, dict(pair_overflow=ovf)) if return_aux else L

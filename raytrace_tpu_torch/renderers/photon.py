@@ -176,10 +176,12 @@ def trace_photons(scene: Scene, config: RenderConfig, key: Tensor,
     the walk's launches."""
     common.require_forward(config, "trace_photons")
     if not config.differentiable:
-        pm, _, _, ovf = _photon_walk(scene, config, key, pass_idx,
-                                     light_index, path_offset, record=False)
+        with metrics.span("rt.frame.walk"):
+            pm, _, _, ovf = _photon_walk(scene, config, key, pass_idx,
+                                         light_index, path_offset,
+                                         record=False)
     else:
-        with torch.no_grad():
+        with torch.no_grad(), metrics.span("rt.frame.walk"):
             pm, chain, light, ovf = _photon_walk(
                 scene, dataclasses.replace(config, differentiable=False), key,
                 pass_idx, light_index, path_offset, record=True)
@@ -266,26 +268,44 @@ def _photon_walk(scene: Scene, config: RenderConfig, key: Tensor,
         full_steps = n_steps
     ovf = 0
     for it in range(n_steps):
-        if it > 0 and not bool(alive.any()):
-            break
-        lanes = all_lanes if it < full_steps else alive.nonzero()[:, 0]
-        u = _bounce_uniforms(k_bounce, gids[lanes], n_int[lanes])
-        out = _photon_step(scene, config, o[lanes], d[lanes], alpha[lanes],
-                           n_int[lanes], alive[lanes], u)
-        ovf = ovf + out["pair_overflow"]
-        dep = out["deposit"]
-        rows, slot = lanes[dep], out["slot"][dep].long()
-        ph_p[rows, slot] = out["dep_p"][dep]
-        ph_alpha[rows, slot] = out["dep_alpha"][dep]
-        ph_wi[rows, slot] = out["dep_wi"][dep]
-        ph_valid[rows, slot] = True
-        if record:
-            # deposit first (its alpha excludes this surface), then append
-            ph_chain[rows, slot] = chain[rows]
-            app = out["append"]
-            chain[lanes[app], it] = out["append_mat"][app].to(torch.int32)
-        o[lanes], d[lanes], alpha[lanes] = out["o"], out["d"], out["alpha"]
-        n_int[lanes], alive[lanes] = out["n_int"], out["alive"]
+        with metrics.span("rt.frame.walk_step"):
+            if it > 0:
+                with metrics.sync("walk_alive"):
+                    any_alive = bool(alive.any())
+                if not any_alive:
+                    break
+            if it < full_steps:
+                lanes = all_lanes
+            else:
+                with metrics.sync("walk_lanes"):
+                    lanes = alive.nonzero()[:, 0]
+            u = _bounce_uniforms(k_bounce, gids[lanes], n_int[lanes])
+            out = _photon_step(scene, config, o[lanes], d[lanes],
+                               alpha[lanes], n_int[lanes], alive[lanes], u)
+            ovf = ovf + out["pair_overflow"]
+            dep = out["deposit"]
+            with metrics.sync("deposit_rows"):
+                rows = lanes[dep]
+            with metrics.sync("deposit_slot"):
+                slot = out["slot"][dep].long()
+            with metrics.sync("deposit_p"):
+                ph_p[rows, slot] = out["dep_p"][dep]
+            with metrics.sync("deposit_alpha"):
+                ph_alpha[rows, slot] = out["dep_alpha"][dep]
+            with metrics.sync("deposit_wi"):
+                ph_wi[rows, slot] = out["dep_wi"][dep]
+            with metrics.sync("deposit_valid"):  # True copied to the card
+                ph_valid[rows, slot] = True
+            if record:
+                # deposit first (its alpha excludes this surface), then
+                # append
+                ph_chain[rows, slot] = chain[rows]
+                app = out["append"]
+                chain[lanes[app], it] = out["append_mat"][app].to(
+                    torch.int32)
+            o[lanes], d[lanes], alpha[lanes] = (out["o"], out["d"],
+                                                out["alpha"])
+            n_int[lanes], alive[lanes] = out["n_int"], out["alive"]
     n_slots = n_paths * max_depth
     pm = PhotonMap(p=ph_p.reshape(n_slots, 3),
                    alpha=ph_alpha.reshape(n_slots, 3),
@@ -326,56 +346,60 @@ def gathering_pass(scene: Scene, rec: common.CameraRecords,
     a truncating hash grid; the row-span gather is exact while overflow is
     0, so the numbers are the same.)"""
     common.require_forward(config, "gathering_pass")
-    wo = vec.normalize(-rec.direction)
-    kd_over_pi = mat_ops.f(scene.materials, rec.mat, wo, wo, uv=rec.uv)
-    n_slots = photons.p.shape[0]
-    n_valid = photons.valid.sum().to(torch.int32)
-    if config.exact_gather:
-        idl, m = gather_radius_dense(photons, rec.p, state.radius2, rec.ns,
-                                     kd_over_pi)
-        overflow = torch.zeros((), dtype=torch.int64, device=m.device)
-        covered = torch.ones_like(rec.hit)
-    elif not config.differentiable and n_slots < DENSE_GATHER_SLOTS:
-        # a miss's M is masked below, so its radius may be 0 here; its
-        # starting radius (initial_radius2, at p = 0) would widen K4's
-        # pre-cull box for its warp to most of the scene
-        pp, pa, pw, pv, n_valid = compact_photons(photons)
-        idl, m = gather_radius_dense_tiles(
-            pp, pa, pw, pv, n_valid, rec.p,
-            torch.where(rec.hit, state.radius2, 0.0), rec.ns, kd_over_pi)
-        overflow = torch.zeros((), dtype=torch.int64, device=m.device)
-        covered = torch.ones_like(rec.hit)
-    else:
-        rounds, job_budget = gather_capacity(config, n_slots)
-        idl, m, overflow, covered = gather_radius_rowspan(
-            photons.p, photons.alpha, photons.wi, photons.valid,
-            gather_cell_size(rec, state), rec.p,
-            torch.where(rec.hit, state.radius2, 0.0), rec.ns, kd_over_pi,
-            r_max=config.gather_r_max, rounds=rounds, job_budget=job_budget)
-    if int(overflow) > 0:
-        warnings.warn(
-            f"gather job budget overflow by {int(overflow)} jobs — affected "
-            "pixel tiles skip this wave (excluded from their normalization);"
-            " raise gather_rounds", RuntimeWarning)
-    info = dict(valid_photons=n_valid,
-                max_cell_occupancy=-1,  # -1: exact path, no per-cell budget
-                gather_overflow=overflow)
+    with metrics.span("rt.gather"):
+        wo = vec.normalize(-rec.direction)
+        kd_over_pi = mat_ops.f(scene.materials, rec.mat, wo, wo, uv=rec.uv)
+        n_slots = photons.p.shape[0]
+        n_valid = photons.valid.sum().to(torch.int32)
+        if config.exact_gather:
+            idl, m = gather_radius_dense(photons, rec.p, state.radius2,
+                                         rec.ns, kd_over_pi)
+            overflow = torch.zeros((), dtype=torch.int64, device=m.device)
+            covered = torch.ones_like(rec.hit)
+        elif not config.differentiable and n_slots < DENSE_GATHER_SLOTS:
+            # a miss's M is masked below, so its radius may be 0 here; its
+            # starting radius (initial_radius2, at p = 0) would widen K4's
+            # pre-cull box for its warp to most of the scene
+            pp, pa, pw, pv, n_valid = compact_photons(photons)
+            idl, m = gather_radius_dense_tiles(
+                pp, pa, pw, pv, n_valid, rec.p,
+                torch.where(rec.hit, state.radius2, 0.0), rec.ns, kd_over_pi)
+            overflow = torch.zeros((), dtype=torch.int64, device=m.device)
+            covered = torch.ones_like(rec.hit)
+        else:
+            rounds, job_budget = gather_capacity(config, n_slots)
+            idl, m, overflow, covered = gather_radius_rowspan(
+                photons.p, photons.alpha, photons.wi, photons.valid,
+                gather_cell_size(rec, state), rec.p,
+                torch.where(rec.hit, state.radius2, 0.0), rec.ns, kd_over_pi,
+                r_max=config.gather_r_max, rounds=rounds,
+                job_budget=job_budget)
+        with metrics.sync("gather_overflow"):
+            n_over = int(overflow)
+        if n_over > 0:
+            warnings.warn(
+                f"gather job budget overflow by {n_over} jobs — affected "
+                "pixel tiles skip this wave (excluded from their "
+                "normalization); raise gather_rounds", RuntimeWarning)
+        info = dict(valid_photons=n_valid,
+                    max_cell_occupancy=-1,  # -1: exact path, no cell budget
+                    gather_overflow=overflow)
 
-    m = torch.where(rec.hit, m, 0)
-    mf = m.to(torch.float32)
-    new_count = state.photon_count + config.ppm_alpha * mf
-    denom = state.photon_count + mf
-    ratio = new_count / torch.where(denom == 0.0, 1.0, denom)
-    upd = m > 0
-    paths_wave = float(n_slots // config.max_photon_depth)
-    state = ProgressiveState(
-        radius2=torch.where(upd, state.radius2 * ratio, state.radius2),
-        photon_count=torch.where(upd, new_count, state.photon_count),
-        flux=torch.where(upd[:, None], (state.flux + idl) * ratio[:, None],
-                         state.flux),
-        emitted=state.emitted + torch.where(covered, paths_wave, 0.0),
-    )
-    return state, info
+        m = torch.where(rec.hit, m, 0)
+        mf = m.to(torch.float32)
+        new_count = state.photon_count + config.ppm_alpha * mf
+        denom = state.photon_count + mf
+        ratio = new_count / torch.where(denom == 0.0, 1.0, denom)
+        upd = m > 0
+        paths_wave = float(n_slots // config.max_photon_depth)
+        state = ProgressiveState(
+            radius2=torch.where(upd, state.radius2 * ratio, state.radius2),
+            photon_count=torch.where(upd, new_count, state.photon_count),
+            flux=torch.where(upd[:, None],
+                             (state.flux + idl) * ratio[:, None], state.flux),
+            emitted=state.emitted + torch.where(covered, paths_wave, 0.0),
+        )
+        return state, info
 
 
 def final_gathering(rec: common.CameraRecords, direct: Tensor,
@@ -397,9 +421,10 @@ def render_photon(scene: Scene, camera: PerspectiveCamera,
     """Full progressive photon-mapping render → [H, W, 3] image; with
     return_aux also a dict of the frame's counters (valid_photons,
     gather_overflow, pair_overflow, mean radius² and photon count)."""
-    img, aux = _render_photon(scene, camera, config, key,
-                              common.static_light_samples(scene, config),
-                              jitter)
+    with metrics.span("rt.frame"):
+        img, aux = _render_photon(scene, camera, config, key,
+                                  common.static_light_samples(scene, config),
+                                  jitter)
     return (img, aux) if return_aux else img
 
 
@@ -457,9 +482,10 @@ def _render_photon(scene: Scene, camera: PerspectiveCamera,
         gather_ovf = gather_ovf + info["gather_overflow"]
         pair_ovf = pair_ovf + info["pair_overflow"]
     isect_ops.warn_pair_overflow(pair_ovf, "render_photon")
-    L = final_gathering(rec, direct, state)
-    img = film.splat(xy, L, config.width, config.height, config.pixel_filter,
-                     config.filter_radius)
+    with metrics.span("rt.frame.final"):
+        L = final_gathering(rec, direct, state)
+        img = film.splat(xy, L, config.width, config.height,
+                         config.pixel_filter, config.filter_radius)
     aux = dict(
         valid_photons=valid_photons,
         max_cell_occupancy=-1,

@@ -16,6 +16,7 @@ from raytrace_tpu_torch.core.sampling import (
     uniform_sphere_pdf,
 )
 from raytrace_tpu_torch.scene.scene import LIGHT_DISTANT, LIGHT_POINT, Lights
+from raytrace_tpu_torch.utils import metrics
 
 
 def sample_L_illum(lights: Lights, i_light: int, p: Tensor, u2d: Tensor):
@@ -25,7 +26,8 @@ def sample_L_illum(lights: Lights, i_light: int, p: Tensor, u2d: Tensor):
     o, p1, p2 = lights.o[i_light], lights.p1[i_light], lights.p2[i_light]
     normal, area = lights.normal[i_light], lights.area[i_light]
     intensity = lights.intensity[i_light]
-    ltype = int(lights.ltype[i_light])
+    with metrics.sync("light_type"):
+        ltype = int(lights.ltype[i_light])
     n = p.shape[0]
     ones = torch.ones(n, dtype=p.dtype, device=p.device)
 

@@ -5,7 +5,19 @@ profiler hook (port of raytrace_tpu/utils/metrics.py).
     the standard logging module;
   - `Throughput`: wall-clock counter → rays/s, photons/s;
   - `trace(log_dir)`: context manager around torch.profiler, writing a
-    Chrome trace of the block (host and, on a GPU, device timelines).
+    Chrome trace of the block (host and, on a GPU, device timelines);
+  - `span(name)`, `sync(site)`: named ranges of the frame on the profiler's
+    host timeline, on exactly while a torch.profiler records and one flag
+    check otherwise.
+
+Span names start with the layer they belong to: `rt.frame.*` (the
+renderer's passes), `rt.intersect.*` (the triangle casts and their
+engines), `rt.gather*` (the radius gather) and `rt.sync.<site>`, which
+wraps exactly one operation that makes the host wait for the card (a
+`nonzero`, a boolean-mask index, an `int()`/`bool()`/`.tolist()` of a card
+tensor, a copy of a host value to the card). A span launches nothing and
+synchronizes nothing, so the frame's device work is the same with tracing
+on or off.
 
 JAX's `device_debug_print` (a print gated on one debug pixel inside jitted
 code) has no counterpart: the port runs eagerly, so a masked tensor can be
@@ -19,6 +31,7 @@ import os
 import time
 
 import torch
+import torch.autograd.profiler as _profiler
 
 logger = logging.getLogger("raytrace_tpu_torch")
 
@@ -64,3 +77,24 @@ def trace(log_dir: str):
         yield prof
     os.makedirs(log_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """Context manager: a range named `name` on the profiler's host
+    timeline while a torch.profiler records (its host events then hold it,
+    on the clock of the card's records, and `trace(log_dir)` writes it to
+    the Chrome trace); otherwise one flag check and a shared no-op."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def sync(site: str):
+    """`span("rt.sync.<site>")`, placed around exactly one operation that
+    makes the host wait for the card."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function("rt.sync." + site)
