@@ -16,7 +16,8 @@
 
 Phases, one JSON result line each:
   1. device     the card's name and power limit; raises without CUDA
-  2. build      nvcc builds kernels K1-K9 from
+  2. build      nvcc builds kernels K1-K9 and the draws' kernel
+                (threefry) from
                 raytrace_tpu_torch/csrc and g++ the host BVH builder, one
                 compiler process per library, all at once
   3. k1         K1 (closest hit) against its plain PyTorch version on
@@ -214,14 +215,23 @@ The large-scene path (BASELINE config[4], 4,194,304 triangles):
  32. large_simple  render_simple at bench.py run_triangle_field's settings
                 (512², 1 spp) on the same scene: a warm-up and 3 frames,
                 every launch coherent, so K6 and K7 and no K8 or K9
- 33. large      render_photon at bench.py run_combined's settings (2^22
+ 33. threefry   the draws' kernel (csrc/threefry.cu) against core/prng.py's
+                eager threefry ops on the same arguments, bit for bit:
+                every fold_in, split, random_bits, uniform and
+                folded_uniform of one run_combined frame, then each of
+                them called at that frame's lane counts (the walk's bounce
+                lanes with two folds and three uniforms, the camera's
+                pixels), batched keys and int, int64 and int32 data among
+                them; one launch a draw
+ 34. large      render_photon at bench.py run_combined's settings (2^22
                 paths, 16.8M slots): a 32×32 triangle_field(2048) frame on
                 the card against the CPU's, the warm-up frame's K2 launch
                 held against its plain version (a k2 line, launch large,
                 with its job spread, pair tests and bound), 2 frames with K6,
-                K7, K8, K9 and K2 launch counts, and one profiled frame
-                (device busy share, K6-K9 and K2 device ms)
- 34. bench      the harness (raytrace_tpu_torch/bench.py, which holds the
+                K7, K8, K9, K2 and the draws' kernel's launch counts, and one
+                profiled frame (device busy share, K6-K9, K2 and the draws'
+                kernel's device ms)
+ 35. bench      the harness (raytrace_tpu_torch/bench.py, which holds the
                 settings above) on the same scene: its combined_multiwave
                 cell in process, config[4] over 4 waves with a checkpoint
                 after wave 2 and the resume probe (the re-run wave's state
@@ -415,6 +425,12 @@ RESUME_IMG_REL_L1 = 1e-6
 GRAD_REL = 1e-3
 
 
+# the draws of core/prng.py that phase threefry holds against the eager
+# ops; its frame's key and inputs take a seed past 32 bits
+DRAWS = ("fold_in", "split", "random_bits", "uniform", "folded_uniform")
+THREEFRY_SEED = 2**32 + 0x9E3779B9
+
+
 def emit(phase: str, **kv) -> None:
     print(json.dumps({"phase": phase, **kv}), flush=True)
 
@@ -464,7 +480,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     names = ("tri_intersect", "rowspan_gather", "rowspan_gather_bwd",
              "dense_gather", "grid_gather", "cluster_cull", "cluster_pair",
-             "epoch_cull", "epoch_mt")
+             "epoch_cull", "epoch_mt", "threefry")
     with ThreadPoolExecutor(len(names) + 1) as pool:
         host = pool.submit(timed_host, "bvh_builder")
         secs = dict(zip(names, pool.map(timed, names)))
@@ -3197,12 +3213,13 @@ def phase_cluster_engine(scene, launches):
 def _kernel_counts():
     return {"k6": ck.cull_tiles.launches, "k7": ck.pair_hits.launches,
             "k8": ek.cull_bits.launches, "k9": ek.mt_jobs.launches,
-            "k2": rg.rowspan_S.launches}
+            "k2": rg.rowspan_S.launches,
+            "threefry": prng.kernel_draw.launches}
 
 
 def _reset_kernel_counts():
     for fn in (ck.cull_tiles, ck.pair_hits, ek.cull_bits, ek.mt_jobs,
-               rg.rowspan_S):
+               rg.rowspan_S, prng.kernel_draw):
         fn.launches = 0
 
 
@@ -3267,6 +3284,118 @@ def phase_large_reference(dev):
     return rel_l1
 
 
+@contextlib.contextmanager
+def eager_draws():
+    """Draws of card keys through core/prng.py's eager threefry ops in
+    place of the draws' kernel."""
+    real = prng._on_card
+    prng._on_card = lambda key: False
+    try:
+        yield
+    finally:
+        prng._on_card = real
+
+
+@contextlib.contextmanager
+def checked_draws():
+    """Swap core/prng.py's draws (DRAWS) for ones that hold each outermost
+    call, made through the kernel, against the eager ops on the same
+    arguments: shape, dtype and values equal bit for bit, one launch a
+    non-empty draw (and one more a fold past the kernel's two). Yields
+    {draw: {calls, launches, shapes}}, the shapes those of the outputs."""
+    real = {name: getattr(prng, name) for name in DRAWS}
+    seen = {name: dict(calls=0, launches=0, shapes=set()) for name in DRAWS}
+    inside = [False]
+
+    def checked(name):
+        def draw(*args):
+            if inside[0]:  # a draw inside a checked one: checked with it
+                return real[name](*args)
+            inside[0] = True
+            try:
+                before = prng.kernel_draw.launches
+                got = real[name](*args)
+                launches = prng.kernel_draw.launches - before
+                with eager_draws():
+                    want = real[name](*args)
+            finally:
+                inside[0] = False
+            if not (got.shape == want.shape and got.dtype == want.dtype
+                    and torch.equal(got, want)):
+                raise AssertionError(
+                    f"threefry: {name} to {tuple(got.shape)} differs from "
+                    "the eager ops on the same arguments")
+            folds = len(args[1]) if name == "folded_uniform" else 0
+            if launches != (1 + max(0, folds - 2) if got.numel() else 0):
+                raise AssertionError(f"threefry: {name} to "
+                                     f"{tuple(got.shape)} made {launches} "
+                                     "kernel launches")
+            row = seen[name]
+            row["calls"] += 1
+            row["launches"] += launches
+            row["shapes"].add(tuple(got.shape))
+            return got
+        return draw
+
+    for name in DRAWS:
+        setattr(prng, name, checked(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(prng, name, fn)
+
+
+def _draw_rows(seen) -> dict:
+    return {name: dict(row, shapes=sorted(map(list, row["shapes"])))
+            for name, row in seen.items()}
+
+
+def phase_threefry(dev, scene, cam):
+    """The draws' kernel against the eager ops at the shapes of the main
+    path: every draw of one run_combined frame, then each of DRAWS called
+    at the frame's lane counts (the walk's bounce lanes and the camera's
+    pixels), all through checked_draws → the kernel table's row."""
+    cfg = RenderConfig(**LARGE)
+    with checked_draws() as frame:
+        img = photon.render_photon(scene, cam, cfg,
+                                   prng.PRNGKey(THREEFRY_SEED, dev))
+        torch.cuda.synchronize()
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError("threefry: the checked frame is not finite")
+    if not frame["folded_uniform"]["calls"]:
+        raise AssertionError("threefry: the frame made no fused draw")
+    lanes = max(s[0] for s in frame["folded_uniform"]["shapes"])
+    pixels = SIZE * SIZE * cfg.spp
+    g = torch.Generator(device=dev).manual_seed(THREEFRY_SEED)
+    ids = torch.randint(-2**40, 2**40, (lanes,), generator=g, device=dev)
+    depth = torch.randint(0, cfg.max_photon_depth + 1, (lanes,), generator=g,
+                          device=dev, dtype=torch.int32)
+    key = prng.PRNGKey(THREEFRY_SEED, dev)
+    with checked_draws() as direct:
+        keys = prng.fold_in(key, ids)
+        cam_keys = prng.fold_in(key, ids[:pixels].to(torch.int32))
+        prng.fold_in(key, THREEFRY_SEED)
+        prng.fold_in(keys, 3)
+        prng.fold_in(keys, depth)
+        prng.split(key, 3)
+        prng.split(keys[0])
+        prng.random_bits(key, (lanes,))
+        prng.random_bits(cam_keys, (2,))
+        prng.uniform(key, (pixels, 2))
+        prng.uniform(keys, (3,))
+        prng.folded_uniform(key, (ids, depth), (3,))
+        prng.folded_uniform(key, (ids[:pixels],), (2,))
+        prng.folded_uniform(keys[7], (ids[:pixels], 5, depth[:pixels]), ())
+    missing = [name for name in DRAWS if not direct[name]["calls"]]
+    if missing:
+        raise AssertionError(f"threefry: {missing} not called")
+    row = dict(frame=_draw_rows(frame), direct=_draw_rows(direct),
+               bounce_lanes=lanes, camera_lanes=pixels)
+    emit("threefry", **row)
+    return row
+
+
 def phase_large(dev, scene, cam, profile_path=None, frames=2):
     """render_photon at run_combined's settings: the card-vs-CPU check at
     32×32, a warm-up whose K2 call is captured and held against the plain
@@ -3313,7 +3442,7 @@ def phase_large(dev, scene, cam, profile_path=None, frames=2):
     kernel_ms = {k: by_kernel.get(name, 0.0) for k, name in (
         ("k6", "cluster_cull_kernel"), ("k7", "cluster_pair_kernel"),
         ("k8", "epoch_cull_kernel"), ("k9", "epoch_mt_kernel"),
-        ("k2", "rowspan_kernel"))}
+        ("k2", "rowspan_kernel"), ("threefry", "threefry_kernel"))}
     emit("large", size=SIZE, triangles=LARGE_TRIS,
          photon_paths=cfg.photon_paths,
          slots=cfg.photon_paths * cfg.max_photon_depth, frames=frames,
@@ -3508,15 +3637,16 @@ def main() -> None:
         profile_step("profile_large_simple", lambda: simple.render_simple(
             lscene, lcam, RenderConfig(**LARGE_SIMPLE), prng.PRNGKey(9, dev)),
             large_simple_s, args.profile + ".large_simple")
+    threefry = phase_threefry(dev, lscene, lcam)
     large_counts, _ = phase_large(
         dev, lscene, lcam, args.profile and args.profile + ".large")
     phase_bench(dev, lscene, lcam, lbuild_s)
 
     # launches: K1 and K2 over the forward frames of phase main, K3 over
     # the gradient steps of phase grad, K4 over the 16-wave preview render,
-    # K6 and K7 over the frames of phase large_simple, K8 and K9 over the
-    # frames of phase large; no renderer calls K5 (as in JAX), so its count
-    # is phase k5's call of gather_radius_grid
+    # K6 and K7 over the frames of phase large_simple, K8, K9 and the draws'
+    # kernel over the frames of phase large; no renderer calls K5 (as in
+    # JAX), so its count is phase k5's call of gather_radius_grid
     rows = [("tri_closest", "raytrace_tpu_torch/csrc/tri_intersect.cu",
              "raytrace_tpu/ops/pallas_intersect.py:42", "main",
              launches["k1"], k1),
@@ -3545,7 +3675,10 @@ def main() -> None:
              large_counts["k8"], k8),
             ("epoch_mt", "raytrace_tpu_torch/csrc/epoch_mt.cu",
              "raytrace_tpu/ops/epoch_intersect.py:184", "large",
-             large_counts["k9"], k9)]
+             large_counts["k9"], k9),
+            ("threefry", "raytrace_tpu_torch/csrc/threefry.cu",
+             "none (jax.random's threefry, which XLA fuses into its "
+             "consumers)", "large", large_counts["threefry"], threefry)]
     # the multi-device paths launch K1 and K2 (phase sharded) and K3 (phase
     # sharded_train) as well, each counted from 0 over its own run
     also = {"tri_closest": {"sharded": sharded_launches["k1"]},

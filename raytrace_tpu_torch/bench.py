@@ -27,7 +27,7 @@ device_busy_s, and device_idle_frac against the timed median. build_s is
 the scene build of the scene the cell renders, peak_memory_gb
 torch.cuda.max_memory_allocated over the cell, launches the kernel
 launches of the timed calls (of the multi-wave cells: the set-up and the
-waves) by kernel id, K1-K9.
+waves) by kernel id, K1-K9 and prng (csrc/threefry.cu, every draw).
 
 Metrics keep bench.py's key names for the same quantities, with
 bench.py's *_compile_s as first_call_s and *_build_s as build_s;
@@ -108,7 +108,8 @@ KERNELS = {"k1": ("tri_intersect", ti.closest_hit),
            "k6": ("cluster_cull", ck.cull_tiles),
            "k7": ("cluster_pair", ck.pair_hits),
            "k8": ("epoch_cull", ek.cull_bits),
-           "k9": ("epoch_mt", ek.mt_jobs)}
+           "k9": ("epoch_mt", ek.mt_jobs),
+           "prng": ("threefry", prng.kernel_draw)}
 
 
 def nvidia_smi() -> str:
@@ -569,16 +570,17 @@ class Cell:
 
 
 CELLS = {
-    "headline": Cell(BENCH, 10, "cornell", ("k1", "k2"), run_headline),
-    "grad": Cell(GRAD, 5, "cornell", ("k1", "k2", "k3"), run_grad),
-    "multiwave": Cell(MULTIWAVE, None, "cornell", ("k1", "k2"),
+    "headline": Cell(BENCH, 10, "cornell", ("k1", "k2", "prng"),
+                     run_headline),
+    "grad": Cell(GRAD, 5, "cornell", ("k1", "k2", "k3", "prng"), run_grad),
+    "multiwave": Cell(MULTIWAVE, None, "cornell", ("k1", "k2", "prng"),
                       run_multiwave),
-    "combined": Cell(LARGE, 3, "large", ("k2", "k6", "k7", "k8", "k9"),
-                     run_combined),
+    "combined": Cell(LARGE, 3, "large",
+                     ("k2", "k6", "k7", "k8", "k9", "prng"), run_combined),
     "combined_multiwave": Cell(LARGE_MULTIWAVE, None, "large",
-                               ("k2", "k6", "k7", "k8", "k9"),
+                               ("k2", "k6", "k7", "k8", "k9", "prng"),
                                run_combined_multiwave),
-    "triangle_field": Cell(LARGE_SIMPLE, 5, "large", ("k6", "k7"),
+    "triangle_field": Cell(LARGE_SIMPLE, 5, "large", ("k6", "k7", "prng"),
                            run_triangle_field),
     "scaling": Cell(SCALING, None, "", ("k1", "k2"), run_scaling),
     "scaling_cpu": Cell(SCALING, None, "", (), run_scaling_cpu),

@@ -51,7 +51,7 @@ class SampleLayout:
             for s in range(req_n):
                 keys = prng.split(key)
                 key, sub = keys[0], keys[1]
-                u = prng.uniform(prng.fold_in(sub, sample_ids), (2,))
+                u = prng.folded_uniform(sub, (sample_ids,), (2,))
                 with metrics.sync("stratum"):
                     k = torch.tensor([s % sx, s // sx], dtype=torch.float32,
                                      device=key.device)
@@ -73,7 +73,7 @@ class SampleLayout:
             for s in range(req_n):
                 keys = prng.split(key)
                 key, sub = keys[0], keys[1]
-                u = prng.uniform(prng.fold_in(sub, sample_ids), ())
+                u = prng.folded_uniform(sub, (sample_ids,), ())
                 cols.append((u + s) / req_n)
         if not cols:
             return torch.zeros((n, 0), dtype=torch.float32, device=key.device)

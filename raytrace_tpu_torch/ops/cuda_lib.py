@@ -6,7 +6,9 @@ interface — the kernels with `-gencode arch=compute_90a,code=sm_90a`
 (Hopper) — and loaded with ctypes. Libraries land in
 `raytrace_tpu_torch/_build/` (git-ignored), named by a hash of the source and
 flags, so an edited source is rebuilt and concurrent first uses cannot load
-a half-written file. Nothing here runs at import time.
+a half-written file. `prefetch` starts a kernel's build on a thread of its
+own, so that nvcc runs while the host does other work; `build` and `load`
+then wait for it. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
+from concurrent.futures import Future
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -38,6 +42,9 @@ EXTRA_FLAGS = {"tri_intersect": ("--fmad=false",),
 HOST_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-march=native"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+# builds that prefetch started, by kernel name; guarded by _pending_lock
+_pending: dict[str, Future] = {}
+_pending_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -53,12 +60,17 @@ def nvcc_path() -> str:
     return path
 
 
+def _library(name: str, src: Path, flags: list) -> Path:
+    """Where the library of `src` built with `flags` lies."""
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(flags).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
 def _compile(name: str, src: Path, compiler: list, flags: list) -> Path:
     """Compile `src` with `compiler` + `flags` unless a library of the same
     source and flags exists → path of the shared library."""
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(flags).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
+    out = _library(name, src, flags)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -83,11 +95,40 @@ def nvcc_flags(name: str) -> list:
                          "-fPIC", *EXTRA_FLAGS.get(name, ())]
 
 
-def build(name: str) -> Path:
-    """Compile the kernel csrc/<name>.cu with nvcc (if needed) → path of
-    the shared library."""
+def _build_now(name: str) -> Path:
     return _compile(name, SRC_DIR / f"{name}.cu", [nvcc_path()],
                     nvcc_flags(name))
+
+
+def build(name: str) -> Path:
+    """Compile the kernel csrc/<name>.cu with nvcc (if needed) → path of
+    the shared library. A build that `prefetch` started is waited for, not
+    repeated; its failure raises here."""
+    with _pending_lock:
+        pending = _pending.get(name)
+    if pending is not None:
+        return pending.result()
+    return _build_now(name)
+
+
+def prefetch(*names: str) -> None:
+    """Start the nvcc build of each kernel csrc/<name>.cu whose library is
+    missing, each on a thread of its own, and return at once."""
+    for name in names:
+        with _pending_lock:
+            if name in _pending or _library(
+                    name, SRC_DIR / f"{name}.cu", nvcc_flags(name)).exists():
+                continue
+            pending = _pending[name] = Future()
+        threading.Thread(target=_build_into, args=(name, pending),
+                         name=f"nvcc-{name}", daemon=True).start()
+
+
+def _build_into(name: str, pending: Future) -> None:
+    try:
+        pending.set_result(_build_now(name))
+    except Exception as err:  # raised again by build(name)
+        pending.set_exception(err)
 
 
 def build_host(name: str) -> Path:

@@ -85,8 +85,7 @@ def gather_cell_size(rec: common.CameraRecords, state: ProgressiveState):
 def _bounce_uniforms(k_bounce: Tensor, gids: Tensor, n_int: Tensor):
     """3 uniforms per lane: threefry(fold_in(fold_in(k, path id), n_int)) —
     a pure function of (pass key, global path id, n_int)."""
-    return prng.uniform(prng.fold_in(prng.fold_in(k_bounce, gids), n_int),
-                        (3,))
+    return prng.folded_uniform(k_bounce, (gids, n_int), (3,))
 
 
 def _photon_step(scene: Scene, config: RenderConfig, o, d, alpha, n_int,

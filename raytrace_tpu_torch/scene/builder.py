@@ -18,6 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from raytrace_tpu_torch.core import prng
 from raytrace_tpu_torch.ops import bvh as bvh_ops
 from raytrace_tpu_torch.ops import cluster_intersect as ci
 from raytrace_tpu_torch.scene import transform as tr
@@ -288,7 +289,10 @@ class SceneBuilder:
         triangles. The triangle arrays are then reordered by the BVH's
         permutation, and clusters hold 512 triangles from 2^21 triangles
         on, 256 below. The host times of the three steps go to the
-        `raytrace_tpu_torch` logger as one `scene_build` line."""
+        `raytrace_tpu_torch` logger as one `scene_build` line. The draws'
+        kernel starts building first (`prng.prefetch`), so that on a card
+        nvcc runs while the host builds the BVH and the clusters."""
+        prng.prefetch(device)
         t = lambda a: torch.as_tensor(a, device=device)
         materials = Materials(
             mtype=t(np.asarray(self._mat_type or [0], np.int32)),

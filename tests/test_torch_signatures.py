@@ -1,13 +1,15 @@
 """Each kernel's ctypes argtypes (the wrappers' *_SIGNATURES) against the C
 entry point in its csrc/*.cu: the same number of parameters, a pointer
-where the source takes `void*` and an int where it takes `int`. ctypes
-does not check a call against the library, so a mismatch would pass a
-value in the wrong slot on the card without an error."""
+where the source takes `void*`, an int where it takes `int`, a 64-bit int
+where it takes `long long` and an unsigned one where it takes `unsigned`.
+ctypes does not check a call against the library, so a mismatch would pass
+a value in the wrong slot on the card without an error."""
 import ctypes
 import re
 
 import pytest
 
+from raytrace_tpu_torch.core import prng
 from raytrace_tpu_torch.ops import cluster_kernels, cuda_lib, dense_gather
 from raytrace_tpu_torch.ops import epoch_kernels, grid_gather, rowspan_gather
 from raytrace_tpu_torch.ops import tri_intersect
@@ -22,7 +24,10 @@ SIGNATURES = {
     "cluster_pair": cluster_kernels._PAIR_SIGNATURES,
     "epoch_cull": epoch_kernels._CULL_SIGNATURES,
     "epoch_mt": epoch_kernels._MT_SIGNATURES,
+    "threefry": prng._SIGNATURES,
 }
+SCALARS = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+           "unsigned": ctypes.c_uint}
 
 
 def _entry_points(source: str) -> dict:
@@ -34,8 +39,8 @@ def _entry_points(source: str) -> dict:
         for p in filter(None, (x.strip() for x in params.split(","))):
             if "*" in p:
                 kinds.append(ctypes.c_void_p)
-            elif re.match(r"int \w+$", p):
-                kinds.append(ctypes.c_int)
+            elif re.match(r"(int|long long|unsigned) \w+$", p):
+                kinds.append(SCALARS[p.rsplit(" ", 1)[0]])
             else:
                 raise AssertionError(f"{name}: parameter {p!r}")
         found[name] = kinds
