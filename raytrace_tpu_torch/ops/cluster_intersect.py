@@ -122,6 +122,12 @@ def _sort_key(cmin, cmax, o, d, tmin, tmax):
     return torch.where(tmax > tmin, key, _KEY_DEAD)
 
 
+def launch_tile_rays(n_rays: int) -> int:
+    """Rays a tile for a launch of n_rays: coarser tiles at launch scale
+    keep the mask O(rays·clusters/tile)."""
+    return 256 if n_rays >= (1 << 21) else TILE_RAYS
+
+
 def intersect_clusters(clusters: ClusterSet, o, d, tmin, tmax,
                        pair_budget: int = 1 << 17, sort_rays: bool = True,
                        rounds: int = 1, tile_rays: int | None = None):
@@ -142,9 +148,7 @@ def _intersect_clusters(clusters, o, d, tmin, tmax, pair_budget, sort_rays,
     n = o.shape[0]
     tv, cmin, cmax = clusters.tv, clusters.cmin, clusters.cmax
     cp, s = tv.shape[0], tv.shape[2]
-    # coarser tiles at launch scale keep the mask O(rays·clusters/tile)
-    if tile_rays is None:
-        tile_rays = 256 if n >= (1 << 21) else TILE_RAYS
+    tile_rays = tile_rays or launch_tile_rays(n)
 
     order = None
     if sort_rays and n > tile_rays:  # a pure permutation

@@ -304,6 +304,20 @@ def _cluster_rounds(scene: Scene, rounds: int) -> int:
     return max(rounds, -(-cp // 2048))
 
 
+def chain_rounds(scene: Scene, n_rays: int, rounds: int) -> int:
+    """The cluster engine's rounds of 2^17 pairs for a launch of the camera
+    walk's specular chains (depths ≥ 1): enough for its whole (tile,
+    cluster) mask, so that no ray mix, such as rays refracted inside a
+    glass mesh, can make it drop a pair. Where `rounds` already held the
+    mask, the kept pairs, and so the hits, are the same."""
+    if scene.clusters is None:
+        return rounds
+    tile_rays = cluster_intersect.launch_tile_rays(n_rays)
+    group = tile_rays * cluster_intersect.TILE_GROUP
+    n_tiles = -(-n_rays // group) * cluster_intersect.TILE_GROUP
+    return max(rounds, -(-n_tiles * scene.clusters.n_clusters // (1 << 17)))
+
+
 def _cluster_hits(scene: Scene, o, d, tmin, tmax, coherent: bool,
                   budget_scale: float, rounds: int):
     """→ (t, idx, overflow) through the engine `_engine` picks."""

@@ -170,24 +170,17 @@ def _camera_walk(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
                         dtype=torch.int32, device=dev) if record else None)
     ovf = 0
 
-    for depth in range(config.max_specular_depth + 1):
-        if depth > 0:
-            with metrics.sync("camera_alive"):
-                any_active = bool(active.any())
-            if not any_active:
-                break
-        if compact and depth > 0:
-            with metrics.sync("camera_lanes"):
-                lanes = active.nonzero()[:, 0]
-        else:
-            lanes = all_lanes
+    def cast(depth: int, lanes):
+        nonlocal footprint, ovf
         act = active[lanes]
         ol, dl = o[lanes], d[lanes]
+        rounds = (config.intersect_rounds if depth == 0 else
+                  isect_ops.chain_rounds(scene, lanes.shape[0],
+                                         config.intersect_rounds))
         hit = isect_ops.intersect(
             scene, ol, dl, torch.full((lanes.shape[0],), eps, device=dev),
             torch.where(act, BIG, 0.0), coherent=True,
-            budget_scale=config.intersect_budget_scale,
-            rounds=config.intersect_rounds)
+            budget_scale=config.intersect_budget_scale, rounds=rounds)
         ovf = ovf + hit.pair_overflow
         spec = mat_ops.is_specular(scene.materials, hit.mat)
         spec_hit = act & hit.valid & spec
@@ -225,6 +218,23 @@ def _camera_walk(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
             # bounced direction of each specular survivor
             rec["direction"] = torch.where(s3, wi, rec["direction"])
         active[lanes] = spec_hit
+
+    cast(0, all_lanes)
+    # the specular chains: depths 1 and on, over the lanes still active
+    with metrics.span("rt.frame.camera.chain"):
+        for depth in range(1, config.max_specular_depth + 1):
+            with metrics.sync("camera_alive"):
+                any_active = bool(active.any())
+            if not any_active:
+                break
+            if compact:
+                with metrics.sync("camera_lanes"):
+                    lanes = active.nonzero()[:, 0]
+            else:
+                lanes = all_lanes
+            metrics.count("chain_lanes", lanes.shape[0])
+            metrics.count("chain_depths", 1)
+            cast(depth, lanes)
 
     # rays still active past the cap → exception flag (raytracing.cu:98-101)
     rec["status"] = torch.where(active, 2, rec["status"])

@@ -8,7 +8,9 @@ profiler hook (port of raytrace_tpu/utils/metrics.py).
     Chrome trace of the block (host and, on a GPU, device timelines);
   - `span(name)`, `sync(site)`: named ranges of the frame on the profiler's
     host timeline, on exactly while a torch.profiler records and one flag
-    check otherwise.
+    check otherwise;
+  - `count(name, n)`: host counters (`COUNTERS`) of values the host
+    already holds, added to under the same condition.
 
 Span names start with the layer they belong to: `rt.frame.*` (the
 renderer's passes), `rt.intersect.*` (the triangle casts and their
@@ -25,6 +27,7 @@ printed where it is computed.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import logging
 import os
@@ -98,3 +101,16 @@ def sync(site: str):
     if not _profiler._is_profiler_enabled:
         return _OFF
     return torch.profiler.record_function("rt.sync." + site)
+
+
+# name → total, added to by `count` while a profiler records (since the
+# process started; clear it to start over): chain_lanes, the lanes the
+# camera walk cast at depths ≥ 1, and chain_depths, those depths
+COUNTERS: collections.Counter = collections.Counter()
+
+
+def count(name: str, n: int) -> None:
+    """COUNTERS[name] += n while a torch.profiler records; otherwise one
+    flag check. `n` is a host int: a counter never reads the card."""
+    if _profiler._is_profiler_enabled:
+        COUNTERS[name] += n

@@ -246,9 +246,12 @@ def test_use_bvh_and_budget_scale_take_effect(scenes, monkeypatch):
     _, aux = p_photon.render_photon(ps, pc, scaled, key, return_aux=True)
     assert len(scales) > 2 and set(scales) == {3.0}
     assert int(aux["pair_overflow"]) == 0
-    # the budgets grow with the scale, between their clamps
+    # the budgets grow with the scale above their floors, without JAX's
+    # caps (2^22, 2^24): a 2^22-ray launch keeps 4 pairs and 8 subpairs a ray
     assert (p_isect.epoch_intersect._budgets(1 << 20, 4096, 8192, 2.0, 1 << 17)
-            == (1 << 22, 1 << 24))
+            == (1 << 23, 1 << 24))
+    assert (p_isect.epoch_intersect._budgets(1 << 22, 16384, 5248, 1.0,
+                                             1 << 17) == (1 << 24, 1 << 25))
     assert (p_isect.epoch_intersect._budgets(1 << 18, 1024, 8192, 0.5, 1 << 17)
             == (1 << 19, 1 << 20))
     with pytest.warns(RuntimeWarning, match="intersect_budget_scale"):
