@@ -186,7 +186,8 @@ The large-scene path (BASELINE config[4], 4,194,304 triangles):
                 (262,144 rays) in full and the photon emission launch
                 (4,194,304 rays) on 2,048 tiles spread over it and on its
                 first 65,536 jobs; mask bytes, t and idx equal; the tests
-                left after K8's exact pre-cull and the warps that skip, the
+                left after K8's exact pre-culls on the scene box and on its
+                group hulls (`cull_tests_plain`) and the warps that skip, the
                 (job, triangle) pairs past K9's gate, and a bound on that
                 work beside the bound on all tests; K9 also on the camera
                 list shifted by one job and shuffled, K8 also on the
@@ -2612,11 +2613,14 @@ def _k8_case(label, epoch, args, tiles, iters):
     """K8 on one captured call against the plain version on `tiles` tiles
     spread evenly over the launch (all of them when None): the sort can
     put a photon launch's sky-bound rays, which the pre-cull skips, on
-    whole runs of tiles. Counts the tests left after the exact pre-cull
-    (`precull_plain` on the launch's own inputs: every padding cluster,
-    and every real cluster for the live subtiles with a ray that may hit)
-    and bounds the kernel on them and on all tests of the live tiles."""
-    o, inv, tmin, tbest, w0, w1, cmin, cmax, n_live, box, n_real = args
+    whole runs of tiles. Counts the tests left after the exact scene-box
+    pre-cull (`precull_plain` on the launch's own inputs: every padding
+    cluster, and every real cluster for the live subtiles with a ray that
+    may hit) and after the group hulls (`cull_tests_plain`, the kernel's
+    counter) and bounds the kernel on each and on all tests of the live
+    tiles."""
+    (o, inv, tmin, tbest, w0, w1, cmin, cmax, n_live, box, n_real, gmin,
+     gmax) = args
     got = ek.cull_bits(*args)
     n_tiles = got.shape[1]
     sel = spread(n_tiles, tiles, o.device)
@@ -2651,12 +2655,18 @@ def _k8_case(label, epoch, args, tiles, iters):
                + torch.arange(warps_per_tile, device=o.device)).reshape(-1)
     nbytes = o.shape[0] * 10 * 4 + n_clusters * (6 * 4 + n_tiles) + 4
     full = bound(K8_TEST_OPS * tests, nbytes)
+    ran, asked = ek.cull_tests_plain(*args)
+    group_tests = ek.CULL_WARP_RAYS * ran + ek.TILE * live_tiles * (
+        n_clusters - n_real)
     row = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-               **bound(K8_TEST_OPS * precull_tests, nbytes),
-               bound_all_tests_ms=full["bound_ms"], library_ms=None)
+               **bound(K8_TEST_OPS * group_tests, nbytes),
+               bound_all_tests_ms=full["bound_ms"],
+               bound_scene_box_ms=bound(K8_TEST_OPS * precull_tests,
+                                        nbytes)["bound_ms"], library_ms=None)
     emit("k8", launch=label, epoch=epoch, rays=o.shape[0], tiles=n_tiles,
          live_tiles=live_tiles, clusters=n_clusters, real_clusters=n_real,
-         tests=tests, tests_after_precull=precull_tests,
+         groups=gmin.shape[0], tests=tests, tests_after_precull=precull_tests,
+         tests_after_groups=group_tests, tested_share=100.0 * ran / asked,
          subtiles_may_hit=sub_may, warps=warp_skip.numel(),
          warps_skipped=int(warp_skip.sum()), checked_tiles=sel.numel(),
          checked_warps=checked.numel(),
@@ -2798,8 +2808,9 @@ def _k8_adversarial(dev):
             host = [a[order] for a in rays] + [cmin, cmax]
             n_live = torch.tensor([live], dtype=torch.int32)
             want = ek.cull_bits_plain(*host, n_live)
+            hulls = ek.group_hulls(cmin.to(dev), cmax.to(dev), real)
             got = ek.cull_bits(*[a.to(dev) for a in host], n_live.to(dev),
-                               box.to(dev), real).cpu()
+                               box.to(dev), real, *hulls).cpu()
             if not torch.equal(got, want):
                 raise AssertionError(
                     f"K8 {name} ({real} real clusters, {n_rays} rays, "

@@ -11,36 +11,51 @@
 // operations (6 differences, 6 products, 11 min/max, 5 compares, 4 ands) on
 // 24 bytes of box that every ray of a tile shares; the output is one byte
 // per 256 tests, so memory moves little next to the arithmetic. Most of
-// what a launch asks is wasted work: rays of a photon launch that leave the
-// scene box, or that an earlier epoch resolved, test every box and set no
-// bit. So the design cuts instructions per test and tests per launch:
+// what a launch asks is wasted work: a ray crosses a few dozen of thousands
+// of boxes, rays of a photon launch leave the scene box, and rays that an
+// earlier epoch resolved test every box and set no bit. So the design cuts
+// instructions per test and tests per launch:
 //
-// - Exact early-out. Each ray first runs the same test against the scene
-//   box S = [smin, smax], which holds every real cluster (index < n_real).
-//   x ↦ (x − o)·inv rounds monotonically, so without NaN each real
-//   cluster's slab values lie between S's on every axis: tn ≥ tn_S,
-//   tf ≤ tf_S, tnc ≥ tnc_S. A hit needs tn ≤ tf, tf > tmin and
-//   w0 ≤ tnc ≤ tf (tnc = max(tn, tmin)), tnc < w1 and tnc < tbest, hence
-//   tn_S ≤ tf_S, tf_S > tmin, w0 ≤ tf_S, tnc_S < w1, tnc_S < tbest and
-//   w0 < tbest. A NaN among a cluster's slab values makes tn and tf NaN and
-//   the cluster misses; a NaN among S's (0·inf where a direction component
-//   is denormal or an origin lies on a face plane) means "may hit": with
-//   finite boxes and directions such a ray hits no real cluster, but with
-//   an unbounded cluster and an infinite direction component it can. A warp
-//   none of whose rays may hit sets its bits of every real cluster to 0
-//   untested; a block whose warps all skip writes those zeros and tests
-//   only the padding clusters (index ≥ n_real, boxes (+inf, −inf), whose
-//   slab (−inf, +inf) passes every live ray in epoch 0), as the plain
-//   version does. ops/epoch_kernels.py `precull_plain` is the same
-//   predicate; tests/test_torch_epoch_precull.py holds it exact.
+// - Exact early-outs on a hierarchy of hulls. Each ray first runs the same
+//   test against the scene box S = [smin, smax], which holds every real
+//   cluster (index < n_real), then against the hull of each group of GROUP
+//   consecutive real clusters (clusters are in BVH-leaf order, so a group
+//   is spatially compact; the last group may be partial). x ↦ (x − o)·inv
+//   rounds monotonically, so without NaN each member's slab values lie
+//   between its hull's on every axis: tn ≥ tn_H, tf ≤ tf_H, tnc ≥ tnc_H. A
+//   hit needs tn ≤ tf, tf > tmin and w0 ≤ tnc ≤ tf (tnc = max(tn, tmin)),
+//   tnc < w1 and tnc < tbest, hence tn_H ≤ tf_H, tf_H > tmin, w0 ≤ tf_H,
+//   tnc_H < w1, tnc_H < tbest and w0 < tbest. A NaN among a cluster's slab
+//   values makes tn and tf NaN and the cluster misses; a NaN among a hull's
+//   (0·inf where a direction component is denormal or an origin lies on a
+//   face plane, or a NaN vertex) means "may hit": with finite boxes and
+//   directions such a ray hits no member, but with an unbounded cluster and
+//   an infinite direction component it can. A warp none of whose rays may
+//   hit S tests no hull; a group none of whose hull tests passes on the
+//   warp gets that warp's bits 0 for all its clusters, untested. A chunk of
+//   boxes that no warp of the block must test is written as zeros without
+//   staging. Padding clusters (index ≥ n_real, boxes (+inf, −inf), whose
+//   slab (−inf, +inf) passes every live ray in epoch 0) belong to no group:
+//   a 32-box word that holds one is tested by every warp, its real clusters
+//   giving 0 exactly where skipped. So the mask is the plain version's bit
+//   for bit. ops/epoch_kernels.py `group_precull_plain` is the same
+//   predicate (`precull_plain` on S); tests/test_torch_epoch_precull.py
+//   holds it exact.
 // - min.NaN.f32 / max.NaN.f32 (sm_80+): torch.minimum's NaN rule in one
 //   instruction instead of two compares and a select.
 // - Four rays per thread, so each box — two 128-bit broadcast loads from
 //   shared memory — serves four tests. Warp w of a block holds rays
 //   [128 w, 128 w + 128) of its four tiles: subtiles 4(w % 2) .. +3 of tile
 //   w / 2. Each thread ORs its hits into a word per ray over 32 boxes, and
-//   one `__reduce_or_sync` per word gives the subtiles' bits; the block
-//   writes each cluster's four tile bytes as one 32-bit store.
+//   one `__reduce_or_sync` per word gives the subtiles' bits; a warp that
+//   skips a word leaves it 0, and the block writes each cluster's four tile
+//   bytes, its warps' nibbles, as one 32-bit store.
+//
+// Optional counter (int64 [2], null unless the caller counts): the box
+// tests the block's live warps ran on real clusters and hulls, S's
+// included, and the tests the launch asked for (live warps × real
+// clusters); one atomic add per block and value. ops/epoch_kernels.py
+// `cull_tests_plain` counts the same.
 //
 // The mask is cluster-major, uint8 [C, n_tiles]: the order the pair
 // compaction reads (JAX transposes its int32 mask for it). Tiles past the
@@ -58,7 +73,13 @@
 #define CHUNK 256                        // boxes staged per pass
 #define STEP 8                           // boxes per unrolled step
 #define CLUSTERS_PER_BLOCK 1024
+#define GROUP 32                         // real clusters under one hull
+#define GROUPS (CLUSTERS_PER_BLOCK / GROUP)  // hulls per block
 #define FULL 0xffffffffu
+
+static_assert(CHUNK % GROUP == 0 && (GROUP % 32 == 0 || 32 % GROUP == 0) &&
+                  GROUPS <= 64,
+              "a block's groups are bits of one 64-bit mask");
 
 __device__ __forceinline__ float nan_min(float a, float b) {
   float r;
@@ -95,11 +116,17 @@ __device__ __forceinline__ bool window_hit(const Ray& r, float tn, float tf) {
   return tn <= tf && tf > r.lo && tnc >= r.a && tnc < r.b && tnc < r.tb;
 }
 
-// the scene box's necessary conditions (see the note above)
+// a hull's necessary conditions (see the note above)
 __device__ __forceinline__ bool may_hit(const Ray& r, float tn, float tf) {
   const float tnc = nan_max(tn, r.lo);
   return tn != tn || (tn <= tf && tf > r.lo && r.a <= tf && tnc < r.b &&
                       tnc < r.tb && r.a < r.tb);
+}
+
+// the bits of the groups that hold block-relative clusters [k, k + n)
+__device__ __forceinline__ uint64_t group_bits(int k, int n) {
+  const int g0 = k / GROUP, g1 = (k + n - 1) / GROUP;
+  return ((2ull << (g1 - g0)) - 1ull) << g0;  // 64 bits: 2 << 63 wraps to 0
 }
 
 // the block's bytes of cluster c: byte t for tile tile0 + t
@@ -119,11 +146,16 @@ __global__ void __launch_bounds__(THREADS) epoch_cull_kernel(
     const float* __restrict__ tmin, const float* __restrict__ tbest,
     const float* __restrict__ w0, const float* __restrict__ w1,
     const float* __restrict__ cmin, const float* __restrict__ cmax,
-    const float* __restrict__ box, const int* __restrict__ n_live,
-    int n_clusters, int n_real, int n_tiles, uint8_t* __restrict__ out) {
+    const float* __restrict__ box, const float* __restrict__ gmin,
+    const float* __restrict__ gmax, const int* __restrict__ n_live,
+    int n_clusters, int n_real, int n_tiles, uint8_t* __restrict__ out,
+    unsigned long long* __restrict__ counter) {
   __shared__ float4 s_box[2][CHUNK];
+  __shared__ float4 s_hull[2][GROUPS];
   // per warp and 32-box word: the words of its RPT subtiles
   __shared__ uint4 s_bits[THREADS / 32][CHUNK / 32];
+  __shared__ uint64_t s_groups[THREADS / 32];  // the groups each warp tests
+  __shared__ unsigned s_ran[THREADS / 32];
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tile0 = blockIdx.x * TILES;
@@ -136,8 +168,22 @@ __global__ void __launch_bounds__(THREADS) epoch_cull_kernel(
     return;
   }
 
+  // real clusters of this block: [c_begin, c_real), in its groups
+  // [g_begin, g_begin + n_hulls)
+  const int c_real = max(c_begin, min(c_end, n_real));
+  const int g_begin = c_begin / GROUP;
+  const int n_hulls = (c_real - c_begin + GROUP - 1) / GROUP;
+  if (threadIdx.x < n_hulls) {
+    const int g = g_begin + threadIdx.x;
+    s_hull[0][threadIdx.x] = make_float4(gmin[3 * g + 0], gmin[3 * g + 1],
+                                         gmin[3 * g + 2], 0.f);
+    s_hull[1][threadIdx.x] = make_float4(gmax[3 * g + 0], gmax[3 * g + 1],
+                                         gmax[3 * g + 2], 0.f);
+  }
+
   // a dead tile's rays get tmin NaN: every comparison with it fails, so
-  // they set no bit, padding clusters included, and never block a skip
+  // they set no bit, padding clusters included, and pass no hull without
+  // NaN
   const int tile = tile0 + warp / 2;
   const bool tile_live = tile < n_tiles && tile * TILE < live;
   const float4 smin = make_float4(box[0], box[1], box[2], 0.f);
@@ -158,25 +204,51 @@ __global__ void __launch_bounds__(THREADS) epoch_cull_kernel(
       r.lo = __int_as_float(0x7fffffff);
       r.tb = r.a = r.b = 0.f;
     }
-    float tn, tf;
-    slab(r, smin, smax, tn, tf);
-    may |= may_hit(r, tn, tf);
+    if (n_hulls > 0) {
+      float tn, tf;
+      slab(r, smin, smax, tn, tf);
+      may |= may_hit(r, tn, tf);
+    }
   }
   const bool skip = !__any_sync(FULL, may);
-  const bool all_skip = __syncthreads_and(skip);
+  __syncthreads();  // the hulls are staged
 
-  // real clusters of this block: [c_begin, c_real)
-  const int c_real = max(c_begin, min(c_end, n_real));
-  int c_first = c_begin;
-  if (all_skip) {
-    for (int c = c_begin + threadIdx.x; c < c_real; c += THREADS)
-      store_bytes(out, c, n_tiles, tile0, 0u);
-    c_first = c_real;
+  // the groups some ray of the warp may hit
+  uint64_t groups = 0;
+  if (!skip) {
+    uint64_t bits = 0;
+#pragma unroll 1
+    for (int j = 0; j < n_hulls; ++j) {
+      const float4 lo = s_hull[0][j], hi = s_hull[1][j];
+      bool m = false;
+#pragma unroll
+      for (int q = 0; q < RPT; ++q) {
+        float tn, tf;
+        slab(ray[q], lo, hi, tn, tf);
+        m |= may_hit(ray[q], tn, tf);
+      }
+      bits |= (uint64_t)m << j;
+    }
+    groups = ((uint64_t)__reduce_or_sync(FULL, (unsigned)(bits >> 32)) << 32) |
+             __reduce_or_sync(FULL, (unsigned)bits);
   }
-  const int warp_first = skip ? c_real : c_first;  // first box it must test
+  if (lane == 0) s_groups[warp] = groups;
+  __syncthreads();
+  uint64_t block_groups = 0;  // the groups some warp of the block tests
+#pragma unroll
+  for (int w = 0; w < THREADS / 32; ++w) block_groups |= s_groups[w];
+  // tests run: S and the hulls (counted only where n_hulls > 0)
+  unsigned ran = n_hulls > 0 ? 1u + (skip ? 0u : (unsigned)n_hulls) : 0u;
 
-  for (int base = c_first; base < c_end; base += CHUNK) {
+  for (int base = c_begin; base < c_end; base += CHUNK) {
     const int cnt = min(CHUNK, c_end - base);
+    // a chunk of real clusters in groups no warp tests: zeros, no tests
+    if (base + cnt <= n_real &&
+        !(block_groups & group_bits(base - c_begin, cnt))) {
+      for (int c = base + threadIdx.x; c < base + cnt; c += THREADS)
+        store_bytes(out, c, n_tiles, tile0, 0u);
+      continue;
+    }
     __syncthreads();
     {
       const int k = threadIdx.x;  // THREADS == CHUNK; NaN boxes pad the chunk
@@ -194,14 +266,15 @@ __global__ void __launch_bounds__(THREADS) epoch_cull_kernel(
     }
     __syncthreads();
     const int words = (cnt + 31) / 32;
-    // a skipping warp's words wholly below c_real stay 0; from the word
-    // holding c_real on it tests every box, the real ones giving 0 exactly
-    const int w_first = max(0, warp_first - base) / 32;
     for (int kw = 0; kw < words; ++kw) {
       uint32_t bits[RPT];
 #pragma unroll
       for (int q = 0; q < RPT; ++q) bits[q] = 0u;
-      if (kw >= w_first) {
+      // a word holding padding is tested by every warp, its real boxes
+      // giving 0 exactly where the warp skipped their group
+      const int c0 = base + 32 * kw, c1 = min(c0 + 32, c_end);
+      if (c1 > n_real || (groups & group_bits(c0 - c_begin, c1 - c0))) {
+        ran += (unsigned)max(0, min(c1, n_real) - c0);
 #pragma unroll 1
         for (int g = 0; g < 32; g += STEP) {
           uint32_t step_bits[RPT];
@@ -243,13 +316,30 @@ __global__ void __launch_bounds__(THREADS) epoch_cull_kernel(
       store_bytes(out, base + k, n_tiles, tile0, bytes);
     }
   }
+
+  if (counter != nullptr) {  // live warps only: a dead tile asks nothing
+    if (lane == 0) s_ran[warp] = tile_live ? ran : 0u;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned long long total = 0, live_warps = 0;
+      for (int w = 0; w < THREADS / 32; ++w) {
+        const int t = tile0 + w / 2;
+        total += s_ran[w];
+        live_warps += t < n_tiles && t * TILE < live;
+      }
+      atomicAdd(counter, total);
+      atomicAdd(counter + 1, live_warps * (unsigned long long)(c_real - c_begin));
+    }
+  }
 }
 
 extern "C" int epoch_cull(const void* o, const void* inv, const void* tmin,
                           const void* tbest, const void* w0, const void* w1,
                           const void* cmin, const void* cmax, const void* box,
+                          const void* gmin, const void* gmax,
                           const void* n_live, int n_clusters, int n_real,
-                          int n_tiles, void* out, void* stream) {
+                          int n_tiles, void* out, void* counter,
+                          void* stream) {
   if (n_tiles > 0 && n_clusters > 0) {
     const dim3 grid((n_tiles + TILES - 1) / TILES,
                     (n_clusters + CLUSTERS_PER_BLOCK - 1) / CLUSTERS_PER_BLOCK);
@@ -257,7 +347,9 @@ extern "C" int epoch_cull(const void* o, const void* inv, const void* tmin,
         (const float*)o, (const float*)inv, (const float*)tmin,
         (const float*)tbest, (const float*)w0, (const float*)w1,
         (const float*)cmin, (const float*)cmax, (const float*)box,
-        (const int*)n_live, n_clusters, n_real, n_tiles, (uint8_t*)out);
+        (const float*)gmin, (const float*)gmax, (const int*)n_live,
+        n_clusters, n_real, n_tiles, (uint8_t*)out,
+        (unsigned long long*)counter);
   }
   return (int)cudaGetLastError();
 }

@@ -35,12 +35,14 @@ callers re-intersect the winner (ops/bvh.reintersect_winner).
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 from torch import Tensor
 
 from raytrace_tpu_torch.ops import cluster_kernels as ck
+from raytrace_tpu_torch.ops import epoch_kernels as ek
 from raytrace_tpu_torch.ops.photon_grid import morton3
 from raytrace_tpu_torch.utils import metrics
 
@@ -56,15 +58,31 @@ class ClusterSet:
     """tv: [C, 9, S] v0/v1/v2 xyz as 9 rows per cluster, triangles along the
     last axis, padded with degenerate (all-zero, never hit) triangles.
     cmin/cmax: [C, 3] cluster boxes; the cluster count is padded to a
-    multiple of 128 with +inf/-inf boxes. n_tris: the unpadded count."""
+    multiple of 128 with +inf/-inf boxes. n_tris: the unpadded count.
+    gmin/gmax: [ceil(n_real / ek.GROUP), 3] the hulls of the real clusters'
+    groups (K8's pre-culls, `ek.group_hulls`), made from the boxes when not
+    given."""
     tv: Tensor
     cmin: Tensor
     cmax: Tensor
     n_tris: int = 0
+    gmin: Optional[Tensor] = None
+    gmax: Optional[Tensor] = None
+
+    def __post_init__(self):
+        if self.gmin is None or self.gmax is None:
+            gmin, gmax = ek.group_hulls(self.cmin, self.cmax, self.n_real)
+            object.__setattr__(self, "gmin", gmin)
+            object.__setattr__(self, "gmax", gmax)
 
     @property
     def n_clusters(self) -> int:
         return self.tv.shape[0]
+
+    @property
+    def n_real(self) -> int:
+        """Clusters holding a triangle; those past them are padding."""
+        return -(-self.n_tris // self.tv.shape[2])
 
 
 def build_clusters(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray, device,
@@ -97,9 +115,12 @@ def build_clusters(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray, device,
         cmin = np.concatenate([cmin, np.full((cpad, 3), np.inf, np.float32)])
         cmax = np.concatenate([cmax, np.full((cpad, 3), -np.inf,
                                              np.float32)])
+    gmin, gmax = ek.group_hulls(torch.from_numpy(cmin),
+                                torch.from_numpy(cmax), -(-t // cluster_size))
     f = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.float32),
                                   device=device)
-    return ClusterSet(tv=f(tv), cmin=f(cmin), cmax=f(cmax), n_tris=int(t))
+    return ClusterSet(tv=f(tv), cmin=f(cmin), cmax=f(cmax), n_tris=int(t),
+                      gmin=gmin.to(device), gmax=gmax.to(device))
 
 
 def floor_cell(x, hi: int):
@@ -163,7 +184,7 @@ def _intersect_clusters(clusters, o, d, tmin, tmax, pair_budget, sort_rays,
 
     # clusters from n_real on are padding (degenerate triangles that never
     # hit, boxes (+inf, −inf)); K6 pre-culls against the real ones' hull
-    n_real = -(-clusters.n_tris // s)
+    n_real = clusters.n_real
     mask = ck.cull_tiles(o_p, d_p, tmin_p, tmax_p, cmin, cmax, tile_rays,
                          n_real)
     mask[:, 0] = 1  # the seed pair (tile, cluster 0)

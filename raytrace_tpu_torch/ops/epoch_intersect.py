@@ -11,8 +11,9 @@ Per epoch:
 
   1. K8 (ops/epoch_kernels.py `cull_bits`): each tile against every cluster
      box → uint8 mask [C, n_tiles], one bit per subtile crossing the box;
-     warps whose rays cannot reach a real cluster through the scene box
-     leave the real clusters untested (an exact pre-cull);
+     warps whose rays cannot reach a real cluster through the scene box,
+     or a group of 32 through its hull (`ClusterSet.gmin`, `.gmax`), leave
+     those clusters untested (exact pre-culls);
   2. pair compaction: the first PB set entries of the cluster-major mask in
      ascending order — one `torch.nonzero`, the list JAX builds by a sort
      or by its word-packed form;
@@ -153,7 +154,7 @@ def _intersect_epochs(clusters, o, d, tmin, tmax, n_epochs, budget_scale,
     cp, s = tv.shape[0], tv.shape[2]
     # clusters past this one hold only padding (degenerate triangles that
     # never hit): their jobs are counted but not tested
-    n_real = -(-clusters.n_tris // s)
+    n_real = clusters.n_real
 
     # sort rays for tile coherence (a pure permutation)
     order = torch.argsort(_sort_key(cmin, cmax, o, d, tmax, tmin),
@@ -204,7 +205,7 @@ def _intersect_epochs(clusters, o, d, tmin, tmax, n_epochs, budget_scale,
             tb = torch.minimum(t_best, tmax_p).contiguous()
             maskT = ek.cull_bits(o_p, inv_d, tmin_p, tb, w0.contiguous(),
                                  w1.contiguous(), cmin, cmax, n_live, real_box,
-                                 n_real)
+                                 n_real, clusters.gmin, clusters.gmax)
 
             pairs, pbits, n_pairs = compact_pairs(maskT, pb)
             sub = ((pbits[:, None].to(torch.int32)

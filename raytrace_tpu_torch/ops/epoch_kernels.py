@@ -4,8 +4,10 @@ raytrace_tpu/ops/epoch_intersect.py).
 
   K8 `cull_bits`  epoch-windowed slab cull of 256-ray tiles against the
                   cluster boxes → uint8 [C, n_tiles], bit k: subtile k
-                  (csrc/epoch_cull.cu); `precull_plain` is its exact
-                  scene-box pre-cull
+                  (csrc/epoch_cull.cu); `precull_plain` and
+                  `group_precull_plain` are its exact pre-culls on the
+                  scene box and on the hulls of `group_hulls`,
+                  `cull_tests_plain` counts the tests they leave
   K9 `mt_jobs`    Möller–Trumbore of 32-ray subtiles against one cluster's
                   triangles per job → per-job (t, idx) [J, 32]
                   (csrc/epoch_mt.cu)
@@ -17,16 +19,20 @@ same order. Each wrapper counts its launches in `.launches`.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from raytrace_tpu_torch.ops import cuda_lib
+from raytrace_tpu_torch.utils import metrics
 
 BIG = 1e30
 TILE = 256  # cull-tile rays
 SUB = 32  # subtile rays: one warp, one bit of the mask
 NSUB = TILE // SUB
 CULL_WARP_RAYS = 128  # csrc/epoch_cull.cu: a warp's four rays per lane
+GROUP = 32  # csrc/epoch_cull.cu: real clusters under one hull
+CULL_BLOCK_CLUSTERS = 1024  # csrc/epoch_cull.cu: clusters a block tests
 _ELEMS_PER_STEP = 1 << 24  # plain versions: tests per block of work
 
 
@@ -62,19 +68,90 @@ def _cull_hits(o, inv, tmin, tbest, w0, w1, cmin, cmax):
             & (tnc < r(tbest)))
 
 
+def group_hulls(cmin, cmax, n_real: int):
+    """The hull of each group of GROUP consecutive real clusters (0 ..
+    n_real − 1; the last group may be partial) → gmin, gmax
+    [ceil(n_real / GROUP), 3], K8's second level of pre-culls. A NaN corner
+    of a member makes its group's hull NaN, which turns the group's
+    pre-cull off."""
+    n_groups = -(-n_real // GROUP)
+    pad = n_groups * GROUP - n_real
+
+    def hull(b, fill, reduce):
+        x = torch.cat([b[:n_real], b.new_full((pad, 3), fill)])
+        return reduce(x.reshape(n_groups, GROUP, 3), dim=1).contiguous()
+
+    return hull(cmin, math.inf, torch.amin), hull(cmax, -math.inf, torch.amax)
+
+
+def group_precull_plain(o, inv, tmin, tbest, w0, w1, gmin, gmax):
+    """The exact pre-culls of K8: rays [N] against hulls [G] (gmin, gmax
+    [G, 3]), each holding some real clusters' boxes → bool [N, G], False
+    where the ray can set no bit of any cluster the hull holds. The same
+    slab test as the cull; without NaN every member's tn, tf, tnc lie
+    inside the hull's (rounding is monotone), so a hit needs tn ≤ tf,
+    tf > tmin, w0 ≤ tf, tnc < w1, tnc < tbest and w0 < tbest on the hull; a
+    NaN there (0·inf) means "may hit". csrc/epoch_cull.cu tests the scene
+    box (`precull_plain`), then each group hull, and leaves a group's
+    clusters untested for a warp none of whose rays may hit it."""
+    r = lambda a: a[:, None]
+    tn, tf = _slab(o, inv, gmin, gmax)
+    tnc = torch.maximum(tn, r(tmin))
+    return torch.isnan(tn) | ((tn <= tf) & (tf > r(tmin)) & (r(w0) <= tf)
+                              & (tnc < r(w1)) & (tnc < r(tbest))
+                              & r(w0 < tbest))
+
+
 def precull_plain(o, inv, tmin, tbest, w0, w1, box):
-    """The exact pre-cull of K8: rays [N] against the scene box `box` [2, 3]
-    (min row, max row), which holds every real cluster → bool [N], False
-    where the ray can set no bit of any real cluster. The same slab test
-    as the cull; without NaN every real cluster's tn, tf, tnc lie inside the
-    box's (rounding is monotone), so a hit needs tn ≤ tf, tf > tmin,
-    w0 ≤ tf, tnc < w1, tnc < tbest and w0 < tbest on the box; a NaN there
-    (0·inf) means "may hit". csrc/epoch_cull.cu skips a warp none of whose
-    rays may hit."""
-    tn, tf = (x[:, 0] for x in _slab(o, inv, box[:1], box[1:]))
-    tnc = torch.maximum(tn, tmin)
-    return torch.isnan(tn) | ((tn <= tf) & (tf > tmin) & (w0 <= tf)
-                              & (tnc < w1) & (tnc < tbest) & (w0 < tbest))
+    """The exact pre-cull of K8 on the scene box `box` [2, 3] (min row, max
+    row), which holds every real cluster → bool [N], False where the ray
+    can set no bit of any real cluster (`group_precull_plain`'s test).
+    csrc/epoch_cull.cu tests no hull for a warp none of whose rays may
+    hit."""
+    return group_precull_plain(o, inv, tmin, tbest, w0, w1, box[:1],
+                               box[1:])[:, 0]
+
+
+def cull_tests_plain(o, inv, tmin, tbest, w0, w1, cmin, cmax, n_live, box,
+                     n_real, gmin, gmax) -> tuple[int, int]:
+    """The counter of K8 for one launch, from `cull_bits`' arguments →
+    (ran, asked): the box tests its live warps run on the scene box, the
+    group hulls and the real clusters, and live warps × real clusters.
+
+    Per live warp (128 rays; tile t live when t·256 < n_live) and block of
+    1,024 clusters holding real ones: one scene-box test; unless no ray of
+    the warp may hit it (`precull_plain`), a test of each group hull of the
+    block; then every real cluster of each 32-cluster word that holds
+    padding or a cluster of a group some ray of the warp may hit
+    (`group_precull_plain`)."""
+    n_tiles, n_clusters = o.shape[0] // TILE, cmin.shape[0]
+    n_real = min(max(int(n_real), 0), n_clusters)
+    n_groups = -(-n_real // GROUP)
+    live_warps = -(-int(n_live) // TILE) * (TILE // CULL_WARP_RAYS)
+    live_warps = min(live_warps, n_tiles * (TILE // CULL_WARP_RAYS))
+    c0 = torch.arange(0, n_clusters, 32, device=o.device)
+    c1 = torch.clamp(c0 + 32, max=n_clusters)
+    real_in = torch.clamp(torch.clamp(c1, max=n_real) - c0, min=0)
+    padded = c1 > n_real
+    # each word's real clusters' groups, as a [words, groups] incidence
+    g = torch.arange(n_groups, device=o.device)
+    in_word = ((g[None, :] * GROUP < torch.clamp(c1, max=n_real)[:, None])
+               & ((g[None, :] + 1) * GROUP > c0[:, None]))
+    blocks = -(-n_real // CULL_BLOCK_CLUSTERS)
+    ran = 0
+    step = max(1, _ELEMS_PER_STEP // (CULL_WARP_RAYS * max(n_groups, 1)))
+    for k in range(0, live_warps, step):
+        n_w = min(live_warps - k, step)
+        rs = slice(k * CULL_WARP_RAYS, (k + n_w) * CULL_WARP_RAYS)
+        args = (o[rs], inv[rs], tmin[rs], tbest[rs], w0[rs], w1[rs])
+        may = precull_plain(*args, box).reshape(n_w, CULL_WARP_RAYS).any(1)
+        gmay = group_precull_plain(*args, gmin, gmax).reshape(
+            n_w, CULL_WARP_RAYS, n_groups).any(1) & may[:, None]
+        words = ((gmay.to(torch.float32) @ in_word.to(torch.float32).T) > 0
+                 ) | padded[None, :]
+        ran += (blocks * n_w + n_groups * int(may.sum())
+                + int((words.to(torch.int64) * real_in).sum()))
+    return ran, live_warps * n_real
 
 
 def cull_bits_plain(o, inv, tmin, tbest, w0, w1, cmin, cmax, n_live):
@@ -99,11 +176,12 @@ def cull_bits_plain(o, inv, tmin, tbest, w0, w1, cmin, cmax, n_live):
     return torch.where(live[None, :], out, 0).to(torch.uint8)
 
 
-_CULL_SIGNATURES = {"epoch_cull": [ctypes.c_void_p] * 10
-                    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2}
+_CULL_SIGNATURES = {"epoch_cull": [ctypes.c_void_p] * 12
+                    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3}
 
 
-def cull_bits(o, inv, tmin, tbest, w0, w1, cmin, cmax, n_live, box, n_real):
+def cull_bits(o, inv, tmin, tbest, w0, w1, cmin, cmax, n_live, box, n_real,
+              gmin, gmax):
     """Kernel K8. Rays in tile order: o, inv [N, 3] (inv = 1/d, 1e-30 where
     d is 0), tmin, tbest, w0, w1 [N] (N a multiple of 256); cluster boxes
     cmin, cmax [C, 3]; n_live int32 [1], the live-prefix ray count (tiles
@@ -112,10 +190,14 @@ def cull_bits(o, inv, tmin, tbest, w0, w1, cmin, cmax, n_live, box, n_real):
     tbest, past tmin.
 
     `box` float32 [2, 3] (min row, max row) must hold the boxes of clusters
-    0 .. n_real − 1, each with min ≤ max (NaN allowed): the kernel then
-    leaves those clusters untested for warps whose rays all fail
-    `precull_plain`, which changes no bit. Clusters from n_real on (the
-    padding) are always tested.
+    0 .. n_real − 1, and gmin, gmax [ceil(n_real / GROUP), 3] the hulls of
+    their groups (`group_hulls`), each box with min ≤ max (NaN allowed):
+    the kernel then leaves a group's clusters untested for warps whose rays
+    all fail its hull's or the box's test (`group_precull_plain`), which
+    changes no bit. Clusters from n_real on (the padding) are always
+    tested. While a torch.profiler records, the kernel adds its tests to
+    the counter `metrics.device_counter("cull_tests")` (`cull_tests_plain`
+    counts the same).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if o.device.type == "cpu":
@@ -124,20 +206,25 @@ def cull_bits(o, inv, tmin, tbest, w0, w1, cmin, cmax, n_live, box, n_real):
     n, n_clusters = o.shape[0], cmin.shape[0]
     if n % TILE:
         raise ValueError(f"cull_bits: {n} rays, not a multiple of {TILE}")
+    n_real = min(max(int(n_real), 0), n_clusters)
+    n_groups = -(-n_real // GROUP)
     f32 = torch.float32
     cuda_lib.check_inputs("cull_bits", o.device, [
         (o, f32, (n, 3)), (inv, f32, (n, 3)), (tmin, f32, (n,)),
         (tbest, f32, (n,)), (w0, f32, (n,)), (w1, f32, (n,)),
         (cmin, f32, (n_clusters, 3)), (cmax, f32, (n_clusters, 3)),
-        (box, f32, (2, 3)), (n_live, torch.int32, (1,))])
+        (box, f32, (2, 3)), (gmin, f32, (n_groups, 3)),
+        (gmax, f32, (n_groups, 3)), (n_live, torch.int32, (1,))])
     lib = cuda_lib.load("epoch_cull", _CULL_SIGNATURES)
     out = torch.empty((n_clusters, n // TILE), dtype=torch.uint8,
                       device=o.device)
+    counter = metrics.device_counter("cull_tests", o.device)
     p = cuda_lib.ptr
     err = lib.epoch_cull(p(o), p(inv), p(tmin), p(tbest), p(w0), p(w1),
-                         p(cmin), p(cmax), p(box), p(n_live), n_clusters,
-                         min(max(int(n_real), 0), n_clusters), n // TILE,
-                         p(out), cuda_lib.stream_ptr(o.device))
+                         p(cmin), p(cmax), p(box), p(gmin), p(gmax),
+                         p(n_live), n_clusters, n_real, n // TILE, p(out),
+                         None if counter is None else p(counter),
+                         cuda_lib.stream_ptr(o.device))
     cuda_lib.check(err, "epoch_cull")
     cull_bits.launches += 1
     return out

@@ -10,7 +10,9 @@ profiler hook (port of raytrace_tpu/utils/metrics.py).
     host timeline, on exactly while a torch.profiler records and one flag
     check otherwise;
   - `count(name, n)`: host counters (`COUNTERS`) of values the host
-    already holds, added to under the same condition.
+    already holds, added to under the same condition;
+  - `device_counter(name, device)`: a counter on the card (in
+    `DEVICE_COUNTERS`) that a kernel adds to under the same condition.
 
 Span names start with the layer they belong to: `rt.frame.*` (the
 renderer's passes), `rt.intersect.*` (the triangle casts and their
@@ -114,3 +116,24 @@ def count(name: str, n: int) -> None:
     flag check. `n` is a host int: a counter never reads the card."""
     if _profiler._is_profiler_enabled:
         COUNTERS[name] += n
+
+
+# (name, device) → int64 tensor on the device that a kernel adds to while a
+# torch.profiler records (since the kernel's first launch; zero it to start
+# over): cull_tests, K8's box tests (ran, asked; ops/epoch_kernels.py
+# `cull_bits`)
+DEVICE_COUNTERS: dict = {}
+
+
+def device_counter(name: str, device):
+    """The card's counter DEVICE_COUNTERS[(name, device)] (int64 [2], made
+    zero at the first call, whether or not a profiler records, so that its
+    zeroing falls outside a traced window) while a torch.profiler records;
+    otherwise None, for the kernel to count nothing. The program only hands
+    it to kernels: a counter never reads the card."""
+    key = (name, device)
+    buf = DEVICE_COUNTERS.get(key)
+    if buf is None:
+        buf = DEVICE_COUNTERS[key] = torch.zeros(2, dtype=torch.int64,
+                                                 device=device)
+    return buf if _profiler._is_profiler_enabled else None

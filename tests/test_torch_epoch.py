@@ -189,10 +189,12 @@ def test_cull_plain_equals_jax(n_rays, n_live):
 
 def _precull(pcs):
     """K8's pre-cull arguments for a port cluster set, as the engine passes
-    them: the hull of the real clusters' boxes and their count."""
-    n_real = -(-pcs.n_tris // pcs.tv.shape[2])
+    them: the hull of the real clusters' boxes, their count and their
+    groups' hulls."""
+    n_real = pcs.n_real
     return (torch.stack([pcs.cmin[:n_real].amin(0),
-                         pcs.cmax[:n_real].amax(0)]), n_real)
+                         pcs.cmax[:n_real].amax(0)]), n_real, pcs.gmin,
+            pcs.gmax)
 
 
 def _job_list(rng, cp, n_real, n_subtiles, count):

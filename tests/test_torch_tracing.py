@@ -186,6 +186,40 @@ def test_readers_without_spans_read_nothing():
     assert read("sync_idle_ms.frame", cpu) is None
 
 
+def test_device_counter_only_while_a_profiler_records():
+    """metrics.device_counter: made zero at its first call with no profiler
+    recording (so its zeroing falls outside any traced window) and None
+    then; the same tensor while a profiler records."""
+    dev = torch.device("cpu")
+    key = ("test_counter", dev)
+    metrics.DEVICE_COUNTERS.pop(key, None)
+    try:
+        assert metrics.device_counter("test_counter", dev) is None
+        buf = metrics.DEVICE_COUNTERS[key]
+        assert torch.equal(buf, torch.zeros(2, dtype=torch.int64))
+        with profile(activities=[ProfilerActivity.CPU]):
+            assert metrics.device_counter("test_counter", dev) is buf
+        assert metrics.device_counter("test_counter", dev) is None
+    finally:
+        metrics.DEVICE_COUNTERS.pop(key, None)
+
+
+def test_cull_tested_share_reads_the_counter(monkeypatch):
+    """`cull_tested_share.frame`: the tests K8 ran ÷ those asked, over every
+    device's `cull_tests` counter, in %; None without a K8 launch or
+    without the counter (the parent's program)."""
+    tr = hand_trace(HOST, DEVICE)
+    monkeypatch.setattr(metrics, "DEVICE_COUNTERS", {})
+    assert read("cull_tested_share.frame", tr) is None
+    monkeypatch.setattr(metrics, "DEVICE_COUNTERS", {
+        ("cull_tests", "a"): torch.tensor([30, 400]),
+        ("cull_tests", "b"): torch.tensor([10, 100]),
+        ("other", "a"): torch.tensor([7, 7])})
+    assert read("cull_tested_share.frame", tr) == pytest.approx(8.0)
+    monkeypatch.delattr(metrics, "DEVICE_COUNTERS")
+    assert read("cull_tested_share.frame", tr) is None
+
+
 def test_host_syncs_counts_every_wait_of_the_frame():
     """A wait counts whether or not a sync span names its site, and only
     inside the frame: the harness's own waits between frames do not."""
