@@ -332,10 +332,6 @@ EDGE_SPP = 16
 EDGE_REF_THETA = 0.03
 EDGE_GI_PATHS = 1 << 18
 EDGE_LARGE_K = 64
-# render_simple's cluster-engine capacity on the icosphere scene, in rounds
-# of 2^17 (tile, cluster) pairs: one round dropped ~97,000 pairs of each
-# ~228,000-pair launch at 512² (its overflow warning asks for more rounds)
-EDGE_LARGE_ROUNDS = 4
 # the sharded train step at 64×64
 SHARDED_TRAIN_SIZE = 64
 # N ranks against one: the JAX package's own bounds (tests/test_sharded.py)
@@ -2498,8 +2494,7 @@ def phase_edges_large(dev, card, es, size=SIZE, subdivisions=4):
         raise AssertionError("edges_large: the scenes' routes are not "
                              "clusters and dense")
     cam = es.camera(dev, size)
-    cfg = RenderConfig(width=size, height=size, spp=1, scene_epsilon=1e-3,
-                       intersect_rounds=EDGE_LARGE_ROUNDS)
+    cfg = RenderConfig(width=size, height=size, spp=1, scene_epsilon=1e-3)
     verts = _tensor(v, dev)
     e0, e1, mask = edges.silhouette_edges(verts, f, scene.lights.o[0])
     silhouette = int(mask.sum())
@@ -2847,9 +2842,6 @@ def phase_k8_k9(launches, scene):
         with recording(ek, "cull_bits") as k8_calls, \
                 recording(ek, "mt_jobs") as k9_calls:
             res = ei.intersect_epochs(scene.clusters, o, d, tmin, tmax)
-        if int(res[3]):
-            raise AssertionError(f"{label} launch: pair overflow "
-                                 f"{int(res[3])}")
         if not (k8_calls and k9_calls):
             raise AssertionError(f"{label} launch: K8 called "
                                  f"{len(k8_calls)}, K9 {len(k9_calls)} times")
@@ -2873,7 +2865,7 @@ def phase_k8_k9(launches, scene):
 
 def phase_engine(scene, camera):
     """The epoch engine's camera launch against the BVH traversal."""
-    o, d, tmin, tmax, (t_e, i_e, n_sp, ovf) = camera
+    o, d, tmin, tmax, (t_e, i_e) = camera
     t0 = time.perf_counter()
     t_b, i_b = bvh_ops._traverse(scene.bvh, scene.tris, o, d, tmin, tmax,
                                  any_hit=False)
@@ -2888,13 +2880,12 @@ def phase_engine(scene, camera):
     both = hit_e & hit_b
     rel = float(((t_e - t_b).abs() / t_b.abs().clamp(min=1e-30))[both].max())
     idx_differ = int((both & (i_e != i_b)).sum())
-    if (int(ovf) or flips > ENGINE_FLIP_FRAC * o.shape[0]
-            or rel > ENGINE_RTOL):
-        raise AssertionError(f"engine: overflow {int(ovf)}, {flips} flips, "
-                             f"t off by {rel} relative")
+    if flips > ENGINE_FLIP_FRAC * o.shape[0] or rel > ENGINE_RTOL:
+        raise AssertionError(f"engine: {flips} flips, t off by {rel} "
+                             "relative")
     emit("engine", rays=o.shape[0], hits=int(both.sum()), flips=flips,
-         max_t_rel_err=rel, idx_differ=idx_differ, n_subpairs=int(n_sp),
-         pair_overflow=0, engine_s=engine_s, bvh_traverse_s=traverse_s)
+         max_t_rel_err=rel, idx_differ=idx_differ, engine_s=engine_s,
+         bvh_traverse_s=traverse_s)
 
 
 def _k6_case(label, args, iters):
@@ -3022,12 +3013,12 @@ def _k7_gate(args) -> tuple[int, int]:
     return gate_tests, _gate_groups(pair_cluster[pairs], ray, o, d, live, tv)
 
 
-def _k7_case(label, args, mask, capacity, iters):
+def _k7_case(label, args, mask, iters):
     """K7 on one captured call against the plain version on the pairs of
     K7_CHECK_TILES tiles spread evenly over the launch (its first tiles
-    can be all sky); n_pairs and overflow from the launch's mask (seeds
-    set) and the engine's capacity. Bounds the kernel on all tests and on
-    the work its function needs (`_k7_gate`)."""
+    can be all sky); n_pairs from the launch's mask (seeds set). Bounds
+    the kernel on all tests and on the work its function needs
+    (`_k7_gate`)."""
     pair_cluster, begin, end, o, d, tmin, tmax, tv = args
     t_got, i_got = ck.pair_hits(*args)
     n_tiles = begin.shape[0]
@@ -3045,9 +3036,6 @@ def _k7_case(label, args, mask, capacity, iters):
         raise AssertionError(f"K7 {label}: (t, idx) of {bad} rays differ "
                              "from the plain version")
     n_pairs = int(mask.count_nonzero())
-    overflow = max(n_pairs - capacity, 0)
-    if overflow:
-        raise AssertionError(f"K7 {label}: pair overflow {overflow}")
     ms = cuda_ms(lambda: ck.pair_hits(*args), iters)
     plain_ms = cuda_ms(lambda: ck.pair_hits_plain(*part), 1)
     kept = int((end - begin).sum())  # the pairs run: real clusters only
@@ -3065,7 +3053,7 @@ def _k7_case(label, args, mask, capacity, iters):
     item_pairs = _k7_item_pairs()
     emit("k7", launch=label, rays=o.shape[0], tiles=n_tiles,
          clusters=tv.shape[0], kept_pairs=kept, n_pairs=n_pairs,
-         overflow=overflow, tile_pairs=spread_stats(end - begin),
+         tile_pairs=spread_stats(end - begin),
          item_pairs=item_pairs, items=_items(begin, end, item_pairs),
          pair_tests=tests, gate_tests=gate_tests, gate_groups=gate_groups,
          tail_tests=tail_tests, tail_share=tail_tests / max(gate_tests, 1),
@@ -3178,8 +3166,7 @@ def phase_k6_k7(dev, scene, cam):
     for label, (args, kw), (k6_args, _), (k7_args, _) in zip(
             labels, launches, k6_calls, k7_calls):
         k6, mask = _k6_case(label, k6_args, 10)
-        capacity = kw.get("pair_budget", 1 << 17) * kw.get("rounds", 1)
-        k7 = _k7_case(label, k7_args, mask, capacity, 3)
+        k7 = _k7_case(label, k7_args, mask, 3)
         rows.append((k6, k7))
         del mask
     del k6_calls, k7_calls
@@ -3193,10 +3180,9 @@ def phase_cluster_engine(scene, launches):
     and shadow launches, each engine timed per launch (CUDA events around
     the whole engine call, host syncs included)."""
     for label, o, d, tmin, tmax, kw in launches:
-        t_c, i_c, n_pairs, ovf_c = ci.intersect_clusters(
-            scene.clusters, o, d, tmin, tmax, **kw)
-        t_e, i_e, n_sp, ovf_e = ei.intersect_epochs(scene.clusters, o, d,
-                                                    tmin, tmax)
+        t_c, i_c = ci.intersect_clusters(scene.clusters, o, d, tmin, tmax,
+                                         **kw)
+        t_e, i_e = ei.intersect_epochs(scene.clusters, o, d, tmin, tmax)
         torch.cuda.synchronize()
         hit_c, hit_e = t_c < BIG, t_e < BIG
         flips = int((hit_c != hit_e).sum())
@@ -3204,20 +3190,17 @@ def phase_cluster_engine(scene, launches):
         rel = float(((t_c - t_e).abs() / t_e.abs().clamp(min=1e-30))[both]
                     .max()) if bool(both.any()) else 0.0
         idx_differ = int((both & (i_c != i_e) & (t_c == t_e)).sum())
-        if (int(ovf_c) or int(ovf_e) or flips > ENGINE_FLIP_FRAC * o.shape[0]
-                or rel > ENGINE_RTOL):
-            raise AssertionError(
-                f"cluster_engine {label}: overflow {int(ovf_c)} / "
-                f"{int(ovf_e)}, {flips} flips, t off by {rel} relative")
+        if flips > ENGINE_FLIP_FRAC * o.shape[0] or rel > ENGINE_RTOL:
+            raise AssertionError(f"cluster_engine {label}: {flips} flips, "
+                                 f"t off by {rel} relative")
         cluster_ms = cuda_ms(lambda: ci.intersect_clusters(
             scene.clusters, o, d, tmin, tmax, **kw), 3)
         epoch_ms = cuda_ms(lambda: ei.intersect_epochs(
             scene.clusters, o, d, tmin, tmax), 3)
         emit("cluster_engine", launch=label, rays=o.shape[0],
-             rounds=kw["rounds"], hits=int(hit_c.sum()), flips=flips,
+             hits=int(hit_c.sum()), flips=flips,
              max_t_rel_err=rel, idx_differ_at_equal_t=idx_differ,
-             n_pairs=int(n_pairs), epoch_subpairs=int(n_sp),
-             pair_overflow=0, cluster_ms=cluster_ms, epoch_ms=epoch_ms,
+             cluster_ms=cluster_ms, epoch_ms=epoch_ms,
              faster="cluster" if cluster_ms < epoch_ms else "epoch")
 
 

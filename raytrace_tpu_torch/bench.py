@@ -155,17 +155,11 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _overflow_warnings(caught) -> dict:
-    """The gather and pair overflows that RuntimeWarnings reported, summed
-    ('... overflow by N ...')."""
-    out = {"gather_overflow": 0, "pair_overflow": 0}
-    for w in caught:
-        text = str(w.message)
-        found = re.search(r"overflow by (\d+)", text)
-        if found:
-            kind = "gather_overflow" if "gather" in text else "pair_overflow"
-            out[kind] += int(found.group(1))
-    return out
+def _overflow_warnings(caught) -> int:
+    """The gather overflow that RuntimeWarnings reported, summed ('...
+    overflow by N ...')."""
+    return sum(int(found.group(1)) for w in caught
+               if (found := re.search(r"overflow by (\d+)", str(w.message))))
 
 
 def cell_config(name: str, size: int | None = None,
@@ -204,11 +198,9 @@ class Report:
         self.check("image_nonzero", all(bool(i.any()) for i in imgs))
         self.put("image_mean", float(imgs[-1].mean()))
 
-    def overflow(self, gather: int, pair: int, prefix: str = "") -> None:
+    def overflow(self, gather: int, prefix: str = "") -> None:
         self.put(prefix + "gather_overflow", int(gather), "jobs")
-        self.put(prefix + "pair_overflow", int(pair), "pairs")
         self.check("gather_overflow_zero", int(gather) == 0)
-        self.check("pair_overflow_zero", int(pair) == 0)
 
     def radius_trace(self, name: str, trace: list) -> None:
         self.put(name, trace)
@@ -329,8 +321,7 @@ def _frame_aux(rep: Report, outs, prefix: str = "") -> None:
     rep.image([img for img, _ in outs])
     rep.put(prefix + "valid_photons", int(outs[-1][1]["valid_photons"]),
             "photons")
-    rep.overflow(max(int(a["gather_overflow"]) for _, a in outs),
-                 max(int(a["pair_overflow"]) for _, a in outs), prefix)
+    rep.overflow(max(int(a["gather_overflow"]) for _, a in outs), prefix)
 
 
 def run_headline(run: Run, rep: Report) -> None:
@@ -378,8 +369,7 @@ def run_grad(run: Run, rep: Report) -> None:
     glass = scene.materials.mtype == GLASS
     rep.check("glass_kd_zero", all(not bool(g.kd[glass].any())
                                    for _, g in outs))
-    ovf = _overflow_warnings(caught)
-    rep.overflow(ovf["gather_overflow"], ovf["pair_overflow"])
+    rep.overflow(_overflow_warnings(caught))
 
 
 def _waves(run: Run, rep: Report, name: str, prefix: str,
@@ -394,7 +384,7 @@ def _waves(run: Run, rep: Report, name: str, prefix: str,
     ls = common.static_light_samples(scene, cfg)
     key = run.key()
     before = launch_counts()
-    (xy, rec, direct, state, k_photon, pair_ovf), setup_s = run.timed(
+    (xy, rec, direct, state, k_photon), setup_s = run.timed(
         lambda: photon._ppm_setup(scene, cam, cfg, key, ls, True))
     rep.put("setup_s", setup_s, "s")
     p_mid = cfg.photon_passes // 2 - 1
@@ -439,9 +429,7 @@ def _waves(run: Run, rep: Report, name: str, prefix: str,
                                else "mean_radius2_trace"), radius)
     rep.put(prefix + "valid_photons", int(infos[-1]["valid_photons"]),
             "photons")
-    rep.overflow(sum(int(i["gather_overflow"]) for i in infos),
-                 int(pair_ovf) + sum(int(i["pair_overflow"])
-                                     for i in infos), prefix)
+    rep.overflow(sum(int(i["gather_overflow"]) for i in infos), prefix)
     img = film.splat(xy, photon.final_gathering(rec, direct, state),
                      cfg.width, cfg.height, cfg.pixel_filter,
                      cfg.filter_radius)
@@ -467,7 +455,6 @@ def run_combined(run: Run, rep: Report) -> None:
     rep.put(p + "tris", int(scene.tris.count), "triangles")
     rep.put(p + "slots", cfg.photon_paths * cfg.max_photon_depth, "slots")
     _frame_aux(rep, outs, p)
-    rep.put(p + "pair_capacity_limited", rep.metrics[p + "pair_overflow"] > 0)
 
 
 def run_combined_multiwave(run: Run, rep: Report) -> None:
@@ -487,8 +474,7 @@ def run_triangle_field(run: Run, rep: Report) -> None:
     rep.put(p + "frame_s", t, "s")
     rep.put(p + "tris", int(scene.tris.count), "triangles")
     rep.image(outs)
-    ovf = _overflow_warnings(caught)
-    rep.overflow(ovf["gather_overflow"], ovf["pair_overflow"])
+    rep.overflow(_overflow_warnings(caught))
 
 
 def _scaling_rank(rank: int, world: int, device, settings: dict,
@@ -544,8 +530,7 @@ def _scaling(run: Run, rep: Report, name: str, device_type: str,
     rep.check("rays_per_s_positive", all(v > 0 for v in rates.values()))
     rep.check("efficiency_iff_counts",
               ("efficiency" in report) == (len(rates) > 1))
-    rep.overflow(max(r["overflow"]["gather_overflow"] for r in ranks),
-                 max(r["overflow"]["pair_overflow"] for r in ranks))
+    rep.overflow(max(r["overflow"] for r in ranks))
 
 
 def run_scaling(run: Run, rep: Report) -> None:

@@ -6,7 +6,10 @@ port does not have (the hash-grid gather) are kept so configs move
 between the two packages unchanged; the renderers raise NotImplementedError
 where one differs from its default (renderers/common.py `require_forward`).
 `ray_chunk` is read by no renderer of either package, `remat_walks` by no
-render path of either (renderers/common.py).
+render path of either (renderers/common.py). `use_bvh`, `intersect_rounds`
+and `intersect_budget_scale` are read by no port path: JAX sizes its
+engines' fixed-shape pair arrays by the last two, while the port's engines
+run every pair of a launch (ops/intersect.py).
 """
 from __future__ import annotations
 

@@ -17,20 +17,19 @@ coherent camera and shadow launches (ops/intersect.py `_engine`):
      cluster box → uint8 mask [n_tiles, C] (a tile whose rays all miss the
      real clusters' hull skips them, which changes no byte); column 0 is
      then set, JAX's seed pair of every tile;
-  3. compaction: the first pair_budget·rounds set entries of the
-     tile-major mask in ascending order — one `torch.nonzero`, JAX's
-     packed pair list and its rounds in one;
-  4. K7 (`pair_hits`): each tile's rays against the triangles of its kept
-     pairs' clusters, one launch; pairs of padding clusters are counted
-     but not run;
+  3. compaction: every set entry of the tile-major mask in ascending
+     order — one `torch.nonzero`, JAX's packed pair list without its
+     fixed-size budget;
+  4. K7 (`pair_hits`): each tile's rays against the triangles of its
+     pairs' clusters, one launch; pairs of padding clusters are not run;
   5. unsort, idx clipped to the triangle count.
 
 Per ray the winner is the smallest t, then the lowest triangle index: what
 JAX's per-round strict `<` fold and strict-`<` min-combine of its rounds
-give, since pairs come sorted by tile and then by cluster. Pairs past the
-capacity are dropped and counted in `overflow`; a tile left without a pair
-is a defined miss (t 1e30, idx 0). Hit-finding takes no gradient: the
-callers re-intersect the winner (ops/bvh.reintersect_winner).
+give, since pairs come sorted by tile and then by cluster. Every pair of
+the mask runs, so the engine is exact for any ray mix. Hit-finding takes
+no gradient: the callers re-intersect the winner
+(ops/tri_intersect.reintersect_winner).
 """
 from __future__ import annotations
 
@@ -150,25 +149,21 @@ def launch_tile_rays(n_rays: int) -> int:
 
 
 def intersect_clusters(clusters: ClusterSet, o, d, tmin, tmax,
-                       pair_budget: int = 1 << 17, sort_rays: bool = True,
-                       rounds: int = 1, tile_rays: int | None = None):
-    """Closest hit through the cluster engine → (t [N], idx [N] int32,
-    n_pairs [], overflow [] int64 on the device). idx is the global
-    triangle index. Exact while overflow is 0; pairs past the capacity
-    pair_budget·rounds are dropped and counted. No gradient: callers
-    re-intersect the winner."""
+                       sort_rays: bool = True, tile_rays: int | None = None):
+    """Closest hit through the cluster engine → (t [N], idx [N] int32).
+    idx is the global triangle index. No gradient: callers re-intersect the
+    winner."""
     with torch.no_grad(), metrics.span("rt.intersect.cluster"):
         return _intersect_clusters(clusters, o.detach(), d.detach(),
-                                   tmin.detach(), tmax.detach(), pair_budget,
-                                   sort_rays, rounds, tile_rays)
+                                   tmin.detach(), tmax.detach(), sort_rays,
+                                   tile_rays)
 
 
-def _intersect_clusters(clusters, o, d, tmin, tmax, pair_budget, sort_rays,
-                        rounds, tile_rays):
+def _intersect_clusters(clusters, o, d, tmin, tmax, sort_rays, tile_rays):
     dev = o.device
     n = o.shape[0]
     tv, cmin, cmax = clusters.tv, clusters.cmin, clusters.cmax
-    cp, s = tv.shape[0], tv.shape[2]
+    cp = tv.shape[0]
     tile_rays = tile_rays or launch_tile_rays(n)
 
     order = None
@@ -189,26 +184,17 @@ def _intersect_clusters(clusters, o, d, tmin, tmax, pair_budget, sort_rays,
                          n_real)
     mask[:, 0] = 1  # the seed pair (tile, cluster 0)
     with metrics.sync("cluster_pairs"):  # tile·cp + cluster
-        flat_pairs = torch.nonzero(mask.reshape(-1))[:, 0]
-    n_pairs = flat_pairs.shape[0]
-    capacity = pair_budget * rounds
-    kept = flat_pairs[:capacity]
-    # tile t's kept pairs are the entries in [t·cp, (t+1)·cp), by ascending
-    # cluster; padding clusters close that run and are counted, not run:
-    # K7 takes [t·cp, t·cp + n_real)
+        pairs = torch.nonzero(mask.reshape(-1))[:, 0]
+    # tile t's pairs are the entries in [t·cp, (t+1)·cp), by ascending
+    # cluster; padding clusters close that run and are not run: K7 takes
+    # [t·cp, t·cp + n_real)
     starts = torch.arange(n_tiles, device=dev) * cp
-    begin = torch.searchsorted(kept, starts).to(torch.int32)
-    end = torch.searchsorted(kept, starts + n_real).to(torch.int32)
-    t_p, i_p = ck.pair_hits((kept % cp).to(torch.int32), begin, end, o_p,
+    begin = torch.searchsorted(pairs, starts).to(torch.int32)
+    end = torch.searchsorted(pairs, starts + n_real).to(torch.int32)
+    t_p, i_p = ck.pair_hits((pairs % cp).to(torch.int32), begin, end, o_p,
                             d_p, tmin_p, tmax_p, tv)
     t, idx = t_p[:n], i_p[:n]
     if order is not None:
         t = torch.empty_like(t).index_put_((order,), t)
         idx = torch.empty_like(idx).index_put_((order,), idx)
-    idx = torch.clamp(idx, 0, max(clusters.n_tris - 1, 0))
-    with metrics.sync("cluster_pair_count"):
-        pairs = torch.tensor(n_pairs, dtype=torch.int64, device=dev)
-    with metrics.sync("cluster_overflow"):
-        overflow = torch.tensor(max(n_pairs - capacity, 0),
-                                dtype=torch.int64, device=dev)
-    return t, idx, pairs, overflow
+    return t, torch.clamp(idx, 0, max(clusters.n_tris - 1, 0))

@@ -14,23 +14,22 @@ Per epoch:
      warps whose rays cannot reach a real cluster through the scene box,
      or a group of 32 through its hull (`ClusterSet.gmin`, `.gmax`), leave
      those clusters untested (exact pre-culls);
-  2. pair compaction: the first PB set entries of the cluster-major mask in
+  2. pair compaction: every set entry of the cluster-major mask in
      ascending order — one `torch.nonzero`, the list JAX builds by a sort
-     or by its word-packed form;
-  3. subpair expansion: each pair's set bits → (cluster, subtile) jobs,
-     truncated to SPB; each cluster's run padded to a multiple of 4 with
-     (cluster, last subtile) jobs, as JAX aligns its job list;
+     or by its word-packed form, without its fixed-size budget;
+  3. subpair expansion: each pair's set bits → (cluster, subtile) jobs;
+     each cluster's run padded to a multiple of 4 with (cluster, last
+     subtile) jobs, as JAX aligns its job list;
   4. K9 (`mt_jobs`): every job's 32 rays against the cluster's triangles,
      one launch for the epoch;
   5. per-subtile combine with JAX's tie rules: the smallest t, then the
      earliest 2^17-job round, then the smallest triangle index. Across
      epochs strict `<` keeps the earlier winner.
 
-The budgets PB and SPB follow the launch geometry (`_budgets`, JAX's rule
-without its caps); pairs and subpairs past them are dropped and counted in
-`overflow`. The compaction reads its counts on the host (three small syncs
-an epoch); the returned counters stay on the device. Hit-finding takes no
-gradient: the callers re-intersect the winner (ops/bvh.reintersect_winner).
+Every pair and subpair of the mask runs, so the engine is exact for any
+ray mix; `round_size` is the unit of JAX's tie rule, not a budget. The
+compaction reads its counts on the host. Hit-finding takes no gradient:
+the callers re-intersect the winner (ops/tri_intersect.reintersect_winner).
 """
 from __future__ import annotations
 
@@ -54,20 +53,6 @@ _KEY_DEAD = 0xFFFFFFFF
 _I64_MAX = (1 << 63) - 1
 
 
-def _budgets(n_rays: int, n_tiles: int, cp: int, scale: float,
-             round_size: int) -> tuple[int, int]:
-    """Per-epoch (pair budget PB, subpair budget SPB) from the launch
-    geometry: about 4 pairs and 8 subpairs per ray, at least 2^14 and one
-    round, powers of two; budget_scale buys more. JAX also caps them at
-    2^22 and 2^24, the job arrays a TPU holds; here nothing is allocated by
-    budget, and under those caps a 2^22-ray launch through a closed glass
-    scene (its photons' emission: 18.2M subpairs, 4.3 a ray) dropped some."""
-    p2 = lambda v: 1 << max(0, (int(v) - 1).bit_length())
-    pb = p2(min(n_tiles * cp, max(n_rays * 4 * scale, 1 << 14)))
-    spb = p2(min(n_tiles * cp * NSUB, max(n_rays * 8 * scale, round_size)))
-    return pb, max(spb, round_size)
-
-
 def _sort_key(cmin, cmax, o, d, tmax, tmin):
     """Ray-coherence sort key: the origin's Morton cell (32³ over the
     cluster bounds), then a fine direction Morton cell (16³ over [-1, 1]³);
@@ -81,15 +66,13 @@ def _sort_key(cmin, cmax, o, d, tmax, tmin):
     return torch.where(tmax > tmin, key, _KEY_DEAD)
 
 
-def compact_pairs(maskT, pb: int):
-    """The first `pb` set entries of the cluster-major mask [C, n_tiles], in
-    ascending flat order → (flat indices [≤ pb] int64, their mask bytes,
-    the number of set entries)."""
+def compact_pairs(maskT):
+    """Every set entry of the cluster-major mask [C, n_tiles], in ascending
+    flat order → (flat indices int64, their mask bytes)."""
     flat = maskT.reshape(-1)
     with metrics.sync("epoch_pairs"):
-        nz = torch.nonzero(flat)[:, 0]
-    pairs = nz[:pb]
-    return pairs, flat[pairs], nz.shape[0]
+        pairs = torch.nonzero(flat)[:, 0]
+    return pairs, flat[pairs]
 
 
 def _aligned_jobs(clus, subtile, cp: int, n_subtiles: int):
@@ -133,27 +116,23 @@ def _combine(t_rows, i_rows, a_sub, rnd, n_rays: int):
 
 
 def intersect_epochs(clusters: ClusterSet, o, d, tmin, tmax,
-                     n_epochs: int = 2, budget_scale: float = 1.0,
-                     round_size: int = ROUND):
+                     n_epochs: int = 2, round_size: int = ROUND):
     """Closest hit through the cluster set with epoch-segmented early
-    termination → (t [N], idx [N] int32, n_subpairs [], overflow [] int64
-    on the device). Exact for any scene and ray mix while overflow is 0;
-    a truncated job is a clean miss. No gradient: callers re-intersect the
-    winner."""
+    termination → (t [N], idx [N] int32). Exact for any scene and ray mix.
+    No gradient: callers re-intersect the winner."""
     with torch.no_grad():
         return _intersect_epochs(clusters, o.detach(), d.detach(),
                                  tmin.detach(), tmax.detach(), n_epochs,
-                                 budget_scale, round_size)
+                                 round_size)
 
 
-def _intersect_epochs(clusters, o, d, tmin, tmax, n_epochs, budget_scale,
-                      round_size):
+def _intersect_epochs(clusters, o, d, tmin, tmax, n_epochs, round_size):
     dev = o.device
     n = o.shape[0]
     tv, cmin, cmax = clusters.tv, clusters.cmin, clusters.cmax
-    cp, s = tv.shape[0], tv.shape[2]
+    cp = tv.shape[0]
     # clusters past this one hold only padding (degenerate triangles that
-    # never hit): their jobs are counted but not tested
+    # never hit): their jobs are not tested
     n_real = clusters.n_real
 
     # sort rays for tile coherence (a pure permutation)
@@ -192,10 +171,8 @@ def _intersect_epochs(clusters, o, d, tmin, tmax, n_epochs, budget_scale,
     real_box = torch.stack([torch.amin(cmin[:max(n_real, 1)], dim=0),
                             torch.amax(cmax[:max(n_real, 1)], dim=0)])
 
-    pb, spb = _budgets(n, n_tiles, cp, budget_scale, round_size)
     t_best = torch.full((np_,), BIG, dtype=torch.float32, device=dev)
     i_best = torch.zeros((np_,), dtype=torch.int32, device=dev)
-    sp_total = ovf_total = 0
     for e in range(n_epochs):
         with metrics.span("rt.intersect.epoch"):
             w0 = (torch.full_like(t_enter, -BIG) if e == 0
@@ -207,14 +184,12 @@ def _intersect_epochs(clusters, o, d, tmin, tmax, n_epochs, budget_scale,
                                  w1.contiguous(), cmin, cmax, n_live, real_box,
                                  n_real, clusters.gmin, clusters.gmax)
 
-            pairs, pbits, n_pairs = compact_pairs(maskT, pb)
+            pairs, pbits = compact_pairs(maskT)
             sub = ((pbits[:, None].to(torch.int32)
                     >> torch.arange(NSUB, device=dev)[None, :]) & 1) > 0
             # row-major: ascending (cluster, subtile)
             with metrics.sync("epoch_subpairs"):
                 nzs = torch.nonzero(sub)
-            n_sp_all = nzs.shape[0]
-            nzs = nzs[:spb]
             pair = pairs[nzs[:, 0]]
             a_clus, a_sub = _aligned_jobs(
                 pair // n_tiles, (pair % n_tiles) * NSUB + nzs[:, 1], cp,
@@ -235,13 +210,6 @@ def _intersect_epochs(clusters, o, d, tmin, tmax, n_epochs, budget_scale,
                 better = t_e < t_best
                 t_best = torch.where(better, t_e, t_best)
                 i_best = torch.where(better, i_e, i_best)
-            sp_total += n_sp_all
-            ovf_total += max(n_pairs - pb, 0) + max(n_sp_all - spb, 0)
 
     t = t_best[:n][unsort]
-    idx = torch.clamp(i_best[:n][unsort], 0, max(clusters.n_tris - 1, 0))
-    with metrics.sync("epoch_subpair_count"):
-        n_subpairs = torch.tensor(sp_total, dtype=torch.int64, device=dev)
-    with metrics.sync("epoch_overflow"):
-        overflow = torch.tensor(ovf_total, dtype=torch.int64, device=dev)
-    return t, idx, n_subpairs, overflow
+    return t, torch.clamp(i_best[:n][unsort], 0, max(clusters.n_tris - 1, 0))

@@ -37,7 +37,6 @@ from torch.distributed.device_mesh import DeviceMesh
 
 from raytrace_tpu_torch.core import prng
 from raytrace_tpu_torch.core.config import RenderConfig
-from raytrace_tpu_torch.ops import intersect as isect_ops
 from raytrace_tpu_torch.ops.photon_grid import PhotonMap
 from raytrace_tpu_torch.renderers import common
 from raytrace_tpu_torch.renderers import photon as photon_renderer
@@ -181,16 +180,15 @@ def _radiance_shard(scene: Scene, camera: PerspectiveCamera, xy_s: Tensor,
     k_light, k_photon = keys[0], keys[1]
 
     rays = generate_rays(camera, xy_s, lens_s, config.spp)
-    rec, cam_aux = common.camera_pass(scene, rays.o, rays.d, config,
-                                      rays=rays, return_aux=True)
+    rec = common.camera_pass(scene, rays.o, rays.d, config, rays=rays)
     # global pixel-sample ids: the light-sample uniforms are a function of
     # them, so N ranks draw the numbers one rank draws
     n_local = xy_s.shape[0]
     sample_ids = chip * n_local + torch.arange(n_local, dtype=torch.int64,
                                                device=xy_s.device)
-    direct, dl_aux = common.direct_lighting(
+    direct = common.direct_lighting(
         scene, rec, k_light, config, light_samples, include_emitted=True,
-        sample_ids=sample_ids, return_aux=True)
+        sample_ids=sample_ids)
     zeros = lambda *s: torch.zeros((n_local, *s), dtype=torch.float32,
                                    device=xy_s.device)
     state = photon_renderer.ProgressiveState(
@@ -199,15 +197,11 @@ def _radiance_shard(scene: Scene, camera: PerspectiveCamera, xy_s: Tensor,
 
     paths_local = max(1, config.photon_paths // n_chips)
     cfg_local = dataclasses.replace(config, photon_paths=paths_local)
-    aux = dict(valid_photons=0, gather_overflow=0,
-               pair_overflow=cam_aux["pair_overflow"]
-               + dl_aux["pair_overflow"])
+    aux = dict(valid_photons=0, gather_overflow=0, pair_overflow=0)
 
     def trace(p):
-        photons, taux = photon_renderer.trace_photons(
-            scene, cfg_local, k_photon, p, path_offset=chip * paths_local,
-            with_aux=True)
-        aux["pair_overflow"] = aux["pair_overflow"] + taux["pair_overflow"]
+        photons = photon_renderer.trace_photons(
+            scene, cfg_local, k_photon, p, path_offset=chip * paths_local)
         return start_gather(_pack_photons(photons), mesh)
 
     def gather(state, pending):
@@ -240,8 +234,6 @@ def render_photon_sharded(scene: Scene, camera: PerspectiveCamera,
     light_samples = common.static_light_samples(scene, config)
     img, aux = _render_sharded(scene, camera, key, config, light_samples,
                                jitter, mesh)
-    isect_ops.warn_pair_overflow(aux["pair_overflow"],
-                                 "render_photon_sharded")
     if not return_aux:
         return img
     counts = torch.tensor([float(aux[k]) for k in sorted(aux)],

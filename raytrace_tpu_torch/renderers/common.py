@@ -116,36 +116,34 @@ def replay(value: Tensor, n_prod: Tensor) -> Tensor:
 
 
 def camera_pass(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
-                rays=None, return_aux: bool = False):
+                rays=None):
     """Trace camera rays, following specular chains up to the cap
     (reference: raytracing.cu:87-128). rays: the RayDifferentials of the
     first segment; when given, the pixel footprint is recorded at the
     first hit. With config.differentiable, atten carries the gradient of
-    its mirror (kd) factors by record and replay. With return_aux, also
-    {'pair_overflow': ...} summed over the chain's launches."""
+    its mirror (kd) factors by record and replay."""
     require_forward(config, "camera_pass")
     with metrics.span("rt.frame.camera"):
         if not config.differentiable:
-            rec, _, ovf = _camera_walk(scene, o, d, config, rays,
-                                       record=False)
+            rec, _ = _camera_walk(scene, o, d, config, rays, record=False)
         else:
             with torch.no_grad():
-                rec, chain, ovf = _camera_walk(
+                rec, chain = _camera_walk(
                     scene, o, d, dataclasses.replace(config,
                                                      differentiable=False),
                     rays, record=True)
             n_prod = chain_product(scene.materials.kd, chain,
                                    torch.ones_like(rec.atten))
             rec = dataclasses.replace(rec, atten=replay(rec.atten, n_prod))
-    return (rec, dict(pair_overflow=ovf)) if return_aux else rec
+    return rec
 
 
 def _camera_walk(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
                  rays, record: bool):
-    """The camera pass → (records, chain, pair_overflow): with `record`,
-    chain [N, max_specular_depth + 1] holds at column b the material of
-    bounce b where that bounce's throughput is its kd row (mirror; glass
-    throughput is ones, mat_ops.kd_in_specular), else −1; None without."""
+    """The camera pass → (records, chain): with `record`, chain [N,
+    max_specular_depth + 1] holds at column b the material of bounce b
+    where that bounce's throughput is its kd row (mirror; glass throughput
+    is ones, mat_ops.kd_in_specular), else −1; None without."""
     n = o.shape[0]
     dev = o.device
     compact = compact_queue_size(config, n) > 0
@@ -168,20 +166,14 @@ def _camera_walk(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
     all_lanes = torch.arange(n, device=dev)
     chain = (torch.full((n, config.max_specular_depth + 1), -1,
                         dtype=torch.int32, device=dev) if record else None)
-    ovf = 0
 
     def cast(depth: int, lanes):
-        nonlocal footprint, ovf
+        nonlocal footprint
         act = active[lanes]
         ol, dl = o[lanes], d[lanes]
-        rounds = (config.intersect_rounds if depth == 0 else
-                  isect_ops.chain_rounds(scene, lanes.shape[0],
-                                         config.intersect_rounds))
         hit = isect_ops.intersect(
             scene, ol, dl, torch.full((lanes.shape[0],), eps, device=dev),
-            torch.where(act, BIG, 0.0), coherent=True,
-            budget_scale=config.intersect_budget_scale, rounds=rounds)
-        ovf = ovf + hit.pair_overflow
+            torch.where(act, BIG, 0.0), coherent=True)
         spec = mat_ops.is_specular(scene.materials, hit.mat)
         spec_hit = act & hit.valid & spec
         diff_hit = act & hit.valid & ~spec
@@ -238,7 +230,7 @@ def _camera_walk(scene: Scene, o: Tensor, d: Tensor, config: RenderConfig,
 
     # rays still active past the cap → exception flag (raytracing.cu:98-101)
     rec["status"] = torch.where(active, 2, rec["status"])
-    return CameraRecords(atten=atten, footprint=footprint, **rec), chain, ovf
+    return CameraRecords(atten=atten, footprint=footprint, **rec), chain
 
 
 def static_light_samples(scene: Scene, config: RenderConfig):
@@ -251,14 +243,12 @@ def static_light_samples(scene: Scene, config: RenderConfig):
 def direct_lighting(scene: Scene, rec: CameraRecords, key: Tensor,
                     config: RenderConfig, light_samples: tuple[int, ...],
                     include_emitted: bool = True,
-                    sample_ids: Tensor | None = None,
-                    return_aux: bool = False):
+                    sample_ids: Tensor | None = None):
     """Direct lighting with shadow rays at the recorded hit points
     (reference: raytracing.cu:49-84): L = lightL + Σ_lights Σ_s
     |n_s·wi|·f·li / (pdf·nSamples), shadow rays over [eps, 1-eps] of the
     unnormalized uwi. Light-sample uniforms are threefry(key, request,
-    global sample id), as in the JAX package. With return_aux, also
-    {'pair_overflow': ...} summed over the shadow launches."""
+    global sample id), as in the JAX package."""
     with metrics.span("rt.frame.direct"):
         n = rec.p.shape[0]
         dev = rec.p.device
@@ -275,16 +265,12 @@ def direct_lighting(scene: Scene, rec: CameraRecords, key: Tensor,
         eps = config.shadow_epsilon
         tmin = torch.full((n,), eps, dtype=torch.float32, device=dev)
         tmax = torch.full((n,), 1.0 - eps, dtype=torch.float32, device=dev)
-        ovf = 0
         for i, ns_i in enumerate(light_samples):
             for s in range(ns_i):
                 li, uwi, pdf = light_ops.sample_L_illum(
                     scene.lights, i, rec.p, u2d[:, offsets[i] + s])
-                shadowed, ovf_s = isect_ops.occluded_aux(
-                    scene, rec.p, uwi, tmin, tmax, coherent=True,
-                    budget_scale=config.intersect_budget_scale,
-                    rounds=config.intersect_rounds)
-                ovf = ovf + ovf_s
+                shadowed = isect_ops.occluded(scene, rec.p, uwi, tmin, tmax,
+                                              coherent=True)
                 wi = vec.normalize(uwi)
                 fr = mat_ops.f(scene.materials, rec.mat, wo, wi, uv=rec.uv)
                 cos = vec.absdot(rec.ns, wi)
@@ -294,4 +280,4 @@ def direct_lighting(scene: Scene, rec: CameraRecords, key: Tensor,
                     (1.0 / ns_i) / torch.where(pdf == 0.0, 1.0, pdf))[:, None]
                 L = L + torch.where(good[:, None], contrib, 0.0)
         L = torch.where(hit[:, None], L, 0.0)
-    return (L, dict(pair_overflow=ovf)) if return_aux else L
+    return L

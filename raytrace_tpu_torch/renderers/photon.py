@@ -97,9 +97,7 @@ def _photon_step(scene: Scene, config: RenderConfig, o, d, alpha, n_int,
     hit = isect_ops.intersect(
         scene, o, d,
         torch.full((width,), config.scene_epsilon, device=o.device),
-        torch.where(act, BIG, 0.0),
-        budget_scale=config.intersect_budget_scale,
-        rounds=config.intersect_rounds)
+        torch.where(act, BIG, 0.0))
     alive = act & hit.valid  # miss → photon dies (photontracing.cu:193)
     spec = mat_ops.is_specular(scene.materials, hit.mat)
     spec_hit = alive & spec
@@ -147,13 +145,12 @@ def _photon_step(scene: Scene, config: RenderConfig, o, d, alpha, n_int,
         scene.materials, hit.mat)))
     return dict(deposit=deposit, slot=slot, dep_p=hit.p, dep_alpha=alpha,
                 dep_wi=-d, o=o2, d=d2, alpha=alpha2, n_int=n_int2,
-                alive=next_alive, append=append, append_mat=hit.mat,
-                pair_overflow=hit.pair_overflow)
+                alive=next_alive, append=append, append_mat=hit.mat)
 
 
 def trace_photons(scene: Scene, config: RenderConfig, key: Tensor,
                   pass_idx: int, light_index: int | None = None,
-                  path_offset: int = 0, with_aux: bool = False):
+                  path_offset: int = 0):
     """One photon wave: `photon_paths` light paths, ≤ max_photon_depth
     diffuse deposits each (reference: photontracing.cu:80-185). With
     several lights, paths are striped over the light table by path id
@@ -169,26 +166,22 @@ def trace_photons(scene: Scene, config: RenderConfig, key: Tensor,
     With config.differentiable, alpha carries the gradient of
     Le[light] ⊙ Π kd[m_j] over each deposit's recorded chain (record and
     replay); Russian roulette stays on, its survival and 1/P reweight
-    inside the detached walk (JAX's detached-sampling estimator).
-
-    With with_aux, returns (PhotonMap, {'pair_overflow': ...}) summed over
-    the walk's launches."""
+    inside the detached walk (JAX's detached-sampling estimator)."""
     common.require_forward(config, "trace_photons")
     if not config.differentiable:
         with metrics.span("rt.frame.walk"):
-            pm, _, _, ovf = _photon_walk(scene, config, key, pass_idx,
-                                         light_index, path_offset,
-                                         record=False)
+            pm, _, _ = _photon_walk(scene, config, key, pass_idx,
+                                    light_index, path_offset, record=False)
     else:
         with torch.no_grad(), metrics.span("rt.frame.walk"):
-            pm, chain, light, ovf = _photon_walk(
+            pm, chain, light = _photon_walk(
                 scene, dataclasses.replace(config, differentiable=False), key,
                 pass_idx, light_index, path_offset, record=True)
         n_prod = common.chain_product(
             scene.materials.kd, chain, vec.take_rows(scene.lights.intensity,
                                                      light))
         pm = dataclasses.replace(pm, alpha=common.replay(pm.alpha, n_prod))
-    return (pm, dict(pair_overflow=ovf)) if with_aux else pm
+    return pm
 
 
 def _path_lights(scene: Scene, gids: Tensor, light_index: int | None):
@@ -230,7 +223,7 @@ def emission(scene: Scene, config: RenderConfig, key: Tensor,
 def _photon_walk(scene: Scene, config: RenderConfig, key: Tensor,
                  pass_idx: int, light_index: int | None, path_offset: int,
                  record: bool):
-    """The photon walk → (PhotonMap, chain, light, pair_overflow): with
+    """The photon walk → (PhotonMap, chain, light): with
     `record`, chain [slots, max_photon_bounces] holds at column s the
     material a slot's path appended at step s before the deposit (−1:
     none), and light [slots] the light each slot's path left; both None
@@ -265,7 +258,6 @@ def _photon_walk(scene: Scene, config: RenderConfig, key: Tensor,
         full_steps = max(1, min(warm, n_steps - 1))
     else:
         full_steps = n_steps
-    ovf = 0
     for it in range(n_steps):
         with metrics.span("rt.frame.walk_step"):
             if it > 0:
@@ -281,7 +273,6 @@ def _photon_walk(scene: Scene, config: RenderConfig, key: Tensor,
             u = _bounce_uniforms(k_bounce, gids[lanes], n_int[lanes])
             out = _photon_step(scene, config, o[lanes], d[lanes],
                                alpha[lanes], n_int[lanes], alive[lanes], u)
-            ovf = ovf + out["pair_overflow"]
             dep = out["deposit"]
             with metrics.sync("deposit_rows"):
                 rows = lanes[dep]
@@ -311,9 +302,9 @@ def _photon_walk(scene: Scene, config: RenderConfig, key: Tensor,
                    wi=ph_wi.reshape(n_slots, 3),
                    valid=ph_valid.reshape(n_slots))
     if not record:
-        return pm, None, None, ovf
+        return pm, None, None
     light = torch.repeat_interleave(em["light"], max_depth)
-    return pm, ph_chain.reshape(n_slots, n_steps), light, ovf
+    return pm, ph_chain.reshape(n_slots, n_steps), light
 
 
 def gather_capacity(config: RenderConfig, n_slots: int) -> tuple[int, int]:
@@ -419,7 +410,11 @@ def render_photon(scene: Scene, camera: PerspectiveCamera,
                   return_aux: bool = False):
     """Full progressive photon-mapping render → [H, W, 3] image; with
     return_aux also a dict of the frame's counters (valid_photons,
-    gather_overflow, pair_overflow, mean radius² and photon count)."""
+    gather_overflow, pair_overflow, mean radius² and photon count).
+
+    pair_overflow is the int 0 here, in render_photon_progressive and in
+    parallel/sharded.py: the intersection engines run every pair, and the
+    key stays because JAX's aux has it and callers read it."""
     with metrics.span("rt.frame"):
         img, aux = _render_photon(scene, camera, config, key,
                                   common.static_light_samples(scene, config),
@@ -430,40 +425,31 @@ def render_photon(scene: Scene, camera: PerspectiveCamera,
 def _ppm_setup(scene: Scene, camera: PerspectiveCamera, config: RenderConfig,
                key: Tensor, light_samples: tuple[int, ...], jitter: bool):
     """Deterministic per-render setup → (pixel samples, camera records,
-    direct light, zeroed PPM state, photon key, pair overflow of the camera
-    and shadow launches). Recomputed, not checkpointed, on resume: it is a
-    pure function of (key, config)."""
+    direct light, zeroed PPM state, photon key). Recomputed, not
+    checkpointed, on resume: it is a pure function of (key, config)."""
     keys = prng.split(key, 3)
     k_pix, k_light, k_photon = keys[0], keys[1], keys[2]
     xy, lens = pixel_samples(k_pix, config.width, config.height, config.spp,
                              jitter=jitter)
     rays = generate_rays(camera, xy, lens, config.spp)
     n = rays.o.shape[0]
-    rec, cam_aux = common.camera_pass(scene, rays.o, rays.d, config,
-                                      rays=rays, return_aux=True)
-    direct, dl_aux = common.direct_lighting(scene, rec, k_light, config,
-                                            light_samples,
-                                            include_emitted=True,
-                                            return_aux=True)
+    rec = common.camera_pass(scene, rays.o, rays.d, config, rays=rays)
+    direct = common.direct_lighting(scene, rec, k_light, config,
+                                    light_samples, include_emitted=True)
     zeros = lambda *s: torch.zeros((n, *s), dtype=torch.float32,
                                    device=key.device)
     state = ProgressiveState(radius2=initial_radius2(rec, config),
                              photon_count=zeros(), flux=zeros(3),
                              emitted=zeros())
-    pair_ovf = cam_aux["pair_overflow"] + dl_aux["pair_overflow"]
-    return xy, rec, direct, state, k_photon, pair_ovf
+    return xy, rec, direct, state, k_photon
 
 
 def _ppm_wave(scene: Scene, rec: common.CameraRecords,
               state: ProgressiveState, k_photon: Tensor, pass_idx: int,
               config: RenderConfig):
-    """One progressive photon wave: trace + gather + radius/flux update;
-    the info dict carries the walk's pair_overflow."""
-    photons, taux = trace_photons(scene, config, k_photon, pass_idx,
-                                  with_aux=True)
-    state, info = gathering_pass(scene, rec, state, photons, config)
-    info["pair_overflow"] = taux["pair_overflow"]
-    return state, info
+    """One progressive photon wave: trace + gather + radius/flux update."""
+    photons = trace_photons(scene, config, k_photon, pass_idx)
+    return gathering_pass(scene, rec, state, photons, config)
 
 
 def _render_photon(scene: Scene, camera: PerspectiveCamera,
@@ -471,7 +457,7 @@ def _render_photon(scene: Scene, camera: PerspectiveCamera,
                    light_samples: tuple[int, ...], jitter: bool):
     """render_photon with the per-light sample counts given → (image,
     aux dict)."""
-    xy, rec, direct, state, k_photon, pair_ovf = _ppm_setup(
+    xy, rec, direct, state, k_photon = _ppm_setup(
         scene, camera, config, key, light_samples, jitter)
     valid_photons = 0
     gather_ovf = 0
@@ -479,8 +465,6 @@ def _render_photon(scene: Scene, camera: PerspectiveCamera,
         state, info = _ppm_wave(scene, rec, state, k_photon, p, config)
         valid_photons = valid_photons + info["valid_photons"]
         gather_ovf = gather_ovf + info["gather_overflow"]
-        pair_ovf = pair_ovf + info["pair_overflow"]
-    isect_ops.warn_pair_overflow(pair_ovf, "render_photon")
     with metrics.span("rt.frame.final"):
         L = final_gathering(rec, direct, state)
         img = film.splat(xy, L, config.width, config.height,
@@ -489,7 +473,7 @@ def _render_photon(scene: Scene, camera: PerspectiveCamera,
         valid_photons=valid_photons,
         max_cell_occupancy=-1,
         gather_overflow=gather_ovf,
-        pair_overflow=pair_ovf,
+        pair_overflow=0,
         mean_radius2=torch.mean(torch.where(rec.hit, state.radius2, 0.0)),
         mean_photon_count=torch.mean(state.photon_count),
     )
@@ -511,12 +495,11 @@ def render_photon_progressive(scene: Scene, camera: PerspectiveCamera,
     verbose, one `log_pass` line per wave (utils/metrics.py).
 
     Returns (image [H, W, 3], ProgressiveState); with return_aux, a third
-    dict: gather_overflow summed over the executed waves, pair_overflow over
-    the setup's launches (camera pass and shadow rays) and every executed
-    wave's photon walk (JAX's accounting), and wave_s, each executed wave's
-    wall time in seconds, device work included."""
+    dict: gather_overflow summed over the executed waves, pair_overflow (0,
+    see `render_photon`), and wave_s, each executed wave's wall time in
+    seconds, device work included."""
     light_samples = common.static_light_samples(scene, config)
-    xy, rec, direct, state, k_photon, pair_ovf = _ppm_setup(
+    xy, rec, direct, state, k_photon = _ppm_setup(
         scene, camera, config, key, light_samples, jitter)
     gather_ovf = 0
     wave_s = []
@@ -531,7 +514,6 @@ def render_photon_progressive(scene: Scene, camera: PerspectiveCamera,
                 torch.cuda.synchronize(state.flux.device)
         wave_s.append(tp.seconds)
         gather_ovf = gather_ovf + info["gather_overflow"]
-        pair_ovf = pair_ovf + info["pair_overflow"]
         if verbose:
             metrics.log_pass(
                 "photon_wave", wave=p,
@@ -545,12 +527,11 @@ def render_photon_progressive(scene: Scene, camera: PerspectiveCamera,
             ckpt.save_progressive(
                 checkpoint_path, state, done, key,
                 emitted_photons=float(config.photon_paths) * done)
-    isect_ops.warn_pair_overflow(pair_ovf, "render_photon_progressive")
     L = final_gathering(rec, direct, state)
     img = film.splat(xy, L, config.width, config.height, config.pixel_filter,
                      config.filter_radius)
     if return_aux:
-        aux = dict(pair_overflow=pair_ovf, gather_overflow=gather_ovf,
+        aux = dict(pair_overflow=0, gather_overflow=gather_ovf,
                    wave_s=wave_s)
         return img, state, aux
     return img, state

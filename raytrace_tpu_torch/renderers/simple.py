@@ -14,7 +14,6 @@ from torch import Tensor
 
 from raytrace_tpu_torch.core import prng
 from raytrace_tpu_torch.core.config import RenderConfig
-from raytrace_tpu_torch.ops import intersect as isect_ops
 from raytrace_tpu_torch.renderers import common
 from raytrace_tpu_torch.scene.camera import (PerspectiveCamera,
                                              generate_rays, pixel_samples)
@@ -31,19 +30,14 @@ def render_simple(scene: Scene, camera: PerspectiveCamera,
     lighting at the first diffuse hit weighted by the chain throughput —
     the reference's simple kernel has no specular path (a mirror renders
     black there); following the chain matches the photon renderer's camera
-    pass. A nonzero pair overflow of the intersection engines is warned on
-    once per frame."""
+    pass."""
     light_samples = common.static_light_samples(scene, config)
     keys = prng.split(key)
     xy, lens = pixel_samples(keys[0], config.width, config.height,
                              config.spp, jitter=jitter)
     rays = generate_rays(camera, xy, lens, config.spp)
-    rec, cam_aux = common.camera_pass(scene, rays.o, rays.d, config,
-                                      return_aux=True)
-    L, dl_aux = common.direct_lighting(scene, rec, keys[1], config,
-                                       light_samples, include_emitted=False,
-                                       return_aux=True)
-    isect_ops.warn_pair_overflow(
-        cam_aux["pair_overflow"] + dl_aux["pair_overflow"], "render_simple")
+    rec = common.camera_pass(scene, rays.o, rays.d, config)
+    L = common.direct_lighting(scene, rec, keys[1], config, light_samples,
+                               include_emitted=False)
     return film.splat(xy, rec.atten * L, config.width, config.height,
                       config.pixel_filter, config.filter_radius)

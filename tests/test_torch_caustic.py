@@ -83,8 +83,7 @@ def camera(scene, cam, render, key_word: int):
     xy, lens = pixel_samples(keys[0], config.width, config.height,
                              config.spp)
     rays = generate_rays(cam, xy, lens, config.spp)
-    return common.camera_pass(scene, rays.o, rays.d, config, rays=rays,
-                              return_aux=True)
+    return common.camera_pass(scene, rays.o, rays.d, config, rays=rays)
 
 
 def test_frame_matches_the_reference(toy):
@@ -152,21 +151,3 @@ def test_chain_span_and_counters(toy, chain_casts):
     assert len(spans) == 1 and len(cams) == 1
     assert (cams[0].time_range.start <= spans[0].time_range.start
             and spans[0].time_range.end <= cams[0].time_range.end)
-
-
-@pytest.mark.parametrize("n_rays", [1, 9967, 1 << 21])
-def test_chain_rounds_hold_the_whole_mask(toy, n_rays):
-    """The chain's capacity covers every (tile, cluster) pair its launch
-    can have, as the cluster engine pads it; other launches keep theirs."""
-    from raytrace_tpu_torch.ops import cluster_intersect as ci
-    from raytrace_tpu_torch.ops import intersect as isect_ops
-
-    _, scene, _, _ = toy
-    tile = ci.launch_tile_rays(n_rays)
-    n_pad = n_rays + (-n_rays % (tile * ci.TILE_GROUP))
-    mask = n_pad // tile * scene.clusters.n_clusters
-    rounds = isect_ops.chain_rounds(scene, n_rays, 1)
-    assert rounds * (1 << 17) >= mask
-    assert isect_ops.chain_rounds(scene, n_rays, rounds + 5) == rounds + 5
-    dense = dataclasses.replace(scene, bvh=None, clusters=None)
-    assert isect_ops.chain_rounds(dense, n_rays, 2) == 2

@@ -6,8 +6,10 @@ coherent launches to it.
 
 JAX's interpret mode steps through every one of its pair_budget·rounds grid
 points, so its calls here take budgets of at most 2^11 on a few hundred
-rays.
+rays. The budgets are JAX's alone: the port runs every pair of a launch.
 """
+import warnings
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -111,9 +113,10 @@ def field():
 
 def _field_case(name):
     """The rays of each case of tests/test_cluster_intersect.py → (o, d,
-    tmin, tmax, keyword arguments for both engines). 300 rays (off the tile
-    boundary) and a budget of 2^10 wherever the case allows, so that JAX
-    compiles its interpret-mode engine once for them."""
+    tmin, tmax, keyword arguments for both engines, JAX's pair_budget among
+    them). 300 rays (off the tile boundary) and a budget of 2^10 wherever
+    the case allows, so that JAX compiles its interpret-mode engine once
+    for them."""
     big = lambda k: np.full(k, BIG, np.float32)
     eps = lambda k: np.full(k, 1e-3, np.float32)
     kw = dict(pair_budget=1 << 10)
@@ -128,9 +131,6 @@ def _field_case(name):
         o = np.stack([rng.uniform(-3, 3, 300), rng.uniform(-3, 3, 300),
                       np.full(300, 8.0)], -1).astype(np.float32)
         d = np.tile(np.array([[0.0, 0.0, 1.0]], np.float32), (300, 1))
-    elif name == "overflow":
-        o, d = (n(x) for x in down_rays(512, seed=12))
-        return o, d, eps(512), big(512), dict(pair_budget=4)
     elif name == "tile_256":
         o, d = (n(x) for x in down_rays(600, seed=13))
         return o, d, eps(600), big(600), dict(pair_budget=1 << 11,
@@ -140,69 +140,40 @@ def _field_case(name):
     return o, d, eps(300), big(300), kw
 
 
-def _run_both(field, o, d, tmin, tmax, **kw):
+def _run_both(field, o, d, tmin, tmax, pair_budget, **kw):
+    """JAX's engine at `pair_budget`, which must hold the launch (its own
+    overflow 0), and the port's → ([t, idx], [t, idx]) as numpy."""
     v0, v1, v2, jcs, pcs = field
     jr = j_ci.intersect_clusters(jcs, jnp.asarray(o), jnp.asarray(d),
                                  jnp.asarray(tmin), jnp.asarray(tmax),
-                                 interpret=True, **kw)
+                                 interpret=True, pair_budget=pair_budget,
+                                 **kw)
+    assert int(jr[3]) == 0
     before = _counts()
     pr = p_ci.intersect_clusters(pcs, t(o), t(d), t(tmin), t(tmax), **kw)
     assert _counts() == before  # CPU tensors: plain versions, no launch
-    assert pr[2].dtype == pr[3].dtype == torch.int64
-    return [n(x) for x in jr], [n(x) for x in pr]
+    return [n(x) for x in jr[:2]], [n(x) for x in pr]
 
 
 @pytest.mark.parametrize("name", ["closest_hit", "tmax_window", "all_miss",
-                                  "overflow", "tile_256", "unsorted"])
+                                  "tile_256", "unsorted"])
 def test_intersect_clusters_equals_jax(field, name):
-    """Each case of tests/test_cluster_intersect.py, tile sizes 128 and 256,
-    sort_rays on and off: n_pairs and overflow equal integers, t and idx as
-    tests/test_torch_epoch.py holds the epoch engine (truncated tiles are
-    the same defined misses on both sides)."""
+    """Each case of tests/test_cluster_intersect.py that JAX's budget holds,
+    tile sizes 128 and 256, sort_rays on and off: t and idx as
+    tests/test_torch_epoch.py holds the epoch engine."""
     o, d, tmin, tmax, kw = _field_case(name)
     jr, pr = _run_both(field, o, d, tmin, tmax, **kw)
     _assert_same_hits(jr, pr, *field[:3], o, d)
     hits = int((pr[0] < BIG).sum())
     if name == "all_miss":
         assert hits == 0
-    elif name == "overflow":
-        assert int(pr[3]) == int(pr[2]) - 4 > 0
     else:
         share = 0.1 if name == "tmax_window" else 0.3
-        assert int(pr[3]) == 0 and hits > share * o.shape[0]
+        assert hits > share * o.shape[0]
     if name == "tmax_window":
         hit = pr[0] < BIG
         assert ((pr[0][hit] > 1e-3) & (pr[0][hit] < 7.0)).all()
         assert hits < 0.9 * o.shape[0]
-
-
-def test_rounds_equal_one_round_and_jax(field):
-    """rounds × pair_budget capacity (tests/test_cluster_intersect.py
-    multiround): rounds that hold the whole list equal one large round bit
-    for bit and JAX's rounds; two rounds overflow, equal JAX's defined
-    misses for the dropped tail, and every other ray keeps its exact
-    hit."""
-    v0, v1, v2, _, pcs = field
-    o, d = (n(x) for x in down_rays(1024, seed=8))
-    tmin, tmax = np.full(1024, 1e-3, np.float32), np.full(1024, BIG,
-                                                         np.float32)
-    ref = p_ci.intersect_clusters(pcs, t(o), t(d), t(tmin), t(tmax),
-                                  pair_budget=1 << 14)
-    n_pairs = int(ref[2])
-    assert int(ref[3]) == 0
-    b = max(2, n_pairs // 5)
-    rounds = -(-n_pairs // b) + 1
-    jr, pr = _run_both(field, o, d, tmin, tmax, pair_budget=b, rounds=rounds)
-    assert int(pr[3]) == 0 and int(pr[2]) == n_pairs
-    assert np.array_equal(pr[0], n(ref[0])) and np.array_equal(pr[1],
-                                                               n(ref[1]))
-    _assert_same_hits(jr, pr, v0, v1, v2, o, d)
-    jr, pr = _run_both(field, o, d, tmin, tmax, pair_budget=b, rounds=2)
-    assert int(pr[3]) == n_pairs - 2 * b > 0
-    _assert_same_hits(jr, pr, v0, v1, v2, o, d)
-    kept = pr[0] < BIG
-    np.testing.assert_array_equal(pr[0][kept], n(ref[0])[kept])
-    assert (pr[1][~kept] == 0).all() and kept.sum() < (n(ref[0]) < BIG).sum()
 
 
 def test_tie_between_clusters(field):
@@ -311,7 +282,8 @@ def test_wrappers_on_cpu_take_the_plain_versions(field):
 
 
 # ---------------------------------------------------------------------------
-# routing and intersect_rounds through the renderers
+# routing through the renderers; intersect_rounds and
+# intersect_budget_scale, which only JAX reads
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -319,26 +291,12 @@ def terrain():
     return p_presets.triangle_field("cpu", 2048, 24)
 
 
-def test_cluster_rounds_follow_jax(terrain):
-    """JAX's `_cluster_rounds`: one round per 2,048 clusters at least, and
-    never fewer than asked for."""
-    scene, _ = terrain
-    assert scene.clusters.cmin.shape[0] == 128
-    assert p_isect._cluster_rounds(scene, 1) == 1
-    assert p_isect._cluster_rounds(scene, 3) == 3
-    wide = type("S", (), {"clusters": p_ci.ClusterSet(
-        tv=torch.zeros(8192, 9, 1), cmin=torch.zeros(8192, 3),
-        cmax=torch.zeros(8192, 3))})()
-    assert p_isect._cluster_rounds(wide, 1) == 4  # BASELINE config[4]
-    assert p_isect._cluster_rounds(wide, 6) == 6
-
-
 def test_render_routes_and_rounds(terrain, monkeypatch):
     """render_photon sends its camera and shadow launches to the cluster
-    engine with intersect_rounds' capacity and its photon walk to the epoch
-    engine; render_simple with intersect_rounds 2 equals 1 bit for bit;
-    the cluster route and the epoch route give the same frame up to tie
-    breaks."""
+    engine and its photon walk to the epoch engine; render_simple with
+    intersect_rounds 2 and intersect_budget_scale 1e-3 equals the default
+    frame bit for bit, without a warning; the cluster route and the epoch
+    route give the same frame up to tie breaks."""
     scene, cam = terrain
     calls = []
     for mod, fn in ((p_isect.cluster_intersect, "intersect_clusters"),
@@ -346,7 +304,7 @@ def test_render_routes_and_rounds(terrain, monkeypatch):
         orig = getattr(mod, fn)
 
         def spy(*args, _orig=orig, _fn=fn, **kw):
-            calls.append((_fn, kw.get("rounds"), args[1].shape[0]))
+            calls.append((_fn, args[1].shape[0]))
             return _orig(*args, **kw)
 
         monkeypatch.setattr(mod, fn, spy)
@@ -360,15 +318,17 @@ def test_render_routes_and_rounds(terrain, monkeypatch):
     coherent = [c for c in calls if c[0] == "intersect_clusters"]
     walk = [c for c in calls if c[0] == "intersect_epochs"]
     # the camera launch and one shadow launch (one point light)
-    assert [c[2] for c in coherent] == [576, 576]
-    assert {c[1] for c in coherent} == {3}
-    assert walk and max(c[2] for c in walk) <= 1 << 10
+    assert [c[1] for c in coherent] == [576, 576]
+    assert walk and max(c[1] for c in walk) <= 1 << 10
 
     base = dict(width=24, height=24, spp=1, scene_epsilon=1e-3)
     key = prng.PRNGKey(1, "cpu")
     img = p_simple.render_simple(scene, cam, PConfig(**base), key)
-    img2 = p_simple.render_simple(scene, cam,
-                                  PConfig(**base, intersect_rounds=2), key)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        img2 = p_simple.render_simple(
+            scene, cam, PConfig(**base, intersect_rounds=2,
+                                intersect_budget_scale=1e-3), key)
     assert torch.equal(img, img2)
     monkeypatch.setenv("RAYTRACE_TPU_ENGINE", "epoch")
     calls.clear()
@@ -384,7 +344,7 @@ def test_render_routes_and_rounds(terrain, monkeypatch):
 def test_engines_agree_on_a_camera_launch(terrain):
     """The cluster and epoch engines on one 24×24 camera launch: hit/miss
     flips and idx differences at equal t counted and bounded, t within
-    2e-5 where both hit, overflow 0; no kernel launch on the CPU."""
+    2e-5 where both hit; no kernel launch on the CPU."""
     scene, cam = terrain
     from raytrace_tpu_torch.ops import epoch_intersect as p_ei
     from raytrace_tpu_torch.scene.camera import generate_rays, pixel_samples
@@ -393,12 +353,9 @@ def test_engines_agree_on_a_camera_launch(terrain):
     k = rays.o.shape[0]
     lo, hi = torch.full((k,), 1e-3), torch.full((k,), BIG)
     before = _counts() + (ek.cull_bits.launches, ek.mt_jobs.launches)
-    tc, ic, npairs, ovc = p_ci.intersect_clusters(scene.clusters, rays.o,
-                                                  rays.d, lo, hi)
-    te, ie, _, ove = p_ei.intersect_epochs(scene.clusters, rays.o, rays.d,
-                                           lo, hi)
+    tc, ic = p_ci.intersect_clusters(scene.clusters, rays.o, rays.d, lo, hi)
+    te, ie = p_ei.intersect_epochs(scene.clusters, rays.o, rays.d, lo, hi)
     assert _counts() + (ek.cull_bits.launches, ek.mt_jobs.launches) == before
-    assert int(ovc) == int(ove) == 0 and int(npairs) >= 8
     hc, he = tc < BIG, te < BIG
     assert hc.sum() > 0.5 * k
     assert int((hc != he).sum()) <= 0.005 * k

@@ -280,8 +280,7 @@ def test_occluded_triangles_takes_the_kernel_t(case):
         scene = port_scene(js)
         jt = js.tris
     args = [t(x) for x in (o, d, lo, hi)]
-    occ, overflow = p_isect._occluded_triangles(scene, *args, False, 1.0)
-    assert overflow == 0
+    occ = p_isect._occluded_triangles(scene, *args, False)
     before = p_tri.intersect_triangles(scene.tris, *args)[0] < BIG
     np.testing.assert_array_equal(n(occ), n(before))
     want = j_pallas.intersect_triangles_pallas(

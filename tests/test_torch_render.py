@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from tests.torch_port_util import n, np_tree, port_scene, t
 from raytrace_tpu.core.config import RenderConfig as JConfig
@@ -27,7 +28,6 @@ from raytrace_tpu.utils import film as j_film
 from raytrace_tpu_torch import interop
 from raytrace_tpu_torch.core import prng
 from raytrace_tpu_torch.core.config import RenderConfig as PConfig
-from raytrace_tpu_torch.ops import intersect as p_isect_mod
 from raytrace_tpu_torch.renderers import common as p_common
 from raytrace_tpu_torch.renderers import photon as p_photon
 from raytrace_tpu_torch.renderers import simple as p_simple
@@ -248,24 +248,19 @@ def test_film_splat(filt, radius):
 
 
 def test_intersect_rounds_raises_the_cluster_capacity(monkeypatch):
-    """intersect_rounds is accepted and buys the cluster engine capacity:
-    with a budget of 4 pairs a round, one round drops pairs of the camera
-    and shadow launches (a warning, another frame), and 256 rounds hold
-    every pair a 1,024-ray launch over 128 clusters can have: the frame of
-    the epoch engine, without a warning."""
+    """intersect_rounds, which sizes JAX's cluster-engine capacity, is
+    accepted and leaves the frame equal bit for bit, without a warning: the
+    port's cluster engine runs every pair of its camera and shadow
+    launches, so its frame is the epoch engine's up to tie breaks."""
     ps, pc = p_presets.triangle_field("cpu", 2048, 8)
-    engine = p_isect_mod.cluster_intersect.intersect_clusters
-    monkeypatch.setattr(p_isect_mod.cluster_intersect, "intersect_clusters",
-                        lambda *a, **kw: engine(*a, pair_budget=4, **kw))
     base = dict(width=8, height=8, spp=1, scene_epsilon=1e-3)
     key = prng.PRNGKey(0, "cpu")
-    with pytest.warns(RuntimeWarning, match="intersect_rounds"):
-        short = p_simple.render_simple(ps, pc, PConfig(**base), key)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        full = p_simple.render_simple(
-            ps, pc, PConfig(**base, intersect_rounds=256), key)
+        full = p_simple.render_simple(ps, pc, PConfig(**base), key)
+        for rounds in (2, 256):
+            assert torch.equal(p_simple.render_simple(
+                ps, pc, PConfig(**base, intersect_rounds=rounds), key), full)
     monkeypatch.setenv("RAYTRACE_TPU_ENGINE", "epoch")
     want = p_simple.render_simple(ps, pc, PConfig(**base), key)
     np.testing.assert_allclose(n(full), n(want), rtol=1e-4, atol=1e-6)
-    assert not np.allclose(n(short), n(want), rtol=1e-4, atol=1e-6)
